@@ -1,0 +1,150 @@
+"""Causal/sliding-window GQA flash attention forward: the CUDA kernel for
+Hopper, its wrapper and its plain PyTorch version.
+
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``src/repro/kernels/flash_attention.py:flash_attention_folded`` (body
+``_flash_kernel``).  It is bound by operations on an H100 (fp32 FMAs on
+the CUDA cores at the width it serves); the source says what its design
+does about that, and how it fits the TPU's VMEM-sized tiles into an SM.
+
+Layouts (folded in ``ops.py``): q (BK, S, G, D) pre-scaled by 1/sqrt(D);
+k, v (BK, T, D) where BK = batch x kv_heads.  Output: (BK, S, G, D).
+
+The tile parameters ``block_q``/``block_k`` are validated exactly as the
+reference does (clamp to the axis, then require it to divide), so every
+registry tile is legal here too; the CUDA kernel's own tiling (64 rows x
+32 keys) does not depend on them.
+
+The kernel is built with ``nvcc`` at first use into ``build/`` at the
+root of the checkout, keyed on a hash of the source and flags, and bound
+with ``ctypes``.  ``launches`` counts kernel launches (never plain-path
+calls); callers reset it by assigning 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .variants import _clamp_div
+
+__all__ = ["flash_attention_folded", "flash_attention_plain", "build",
+           "launches", "NEG_INF", "HEAD_DIMS"]
+
+NEG_INF = -1e30
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # head dims the kernel is built for
+
+launches = 0
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_lib = None
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    digest = hashlib.sha256(_SOURCE.read_bytes()
+                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = _BUILD_ROOT / f"flash_attention-{digest}"
+    lib_path = out_dir / "libflash_attention.so"
+    if not lib_path.exists():
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libflash_attention.{os.getpid()}.so"
+        res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp),
+                              str(_SOURCE)], capture_output=True, text=True)
+        (out_dir / "nvcc.log").write_text(res.stdout + res.stderr)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
+    """The same function in plain PyTorch (einsum, mask, softmax), on the
+    folded layout; what the wrapper runs for CPU tensors."""
+    S, T = q.shape[1], k.shape[1]
+    s = torch.einsum("bsgd,btd->bgst", q.float(), k.float())
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (q_pos >= k_pos)
+    if window:
+        mask = mask & ((q_pos - k_pos) < window)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bgst,btd->bsgd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_folded(q, k, v, *, causal: bool = True, window: int = 0,
+                           block_q: int = 128, block_k: int = 128):
+    """q: (BK, S, G, D) pre-scaled by 1/sqrt(D); k, v: (BK, T, D).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.  Returns (BK, S, G, D) in q's dtype."""
+    global launches
+    if q.dim() != 4 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"want q (BK,S,G,D), k = v (BK,T,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BK, S, G, D = q.shape
+    T = k.shape[1]
+    if k.shape[0] != BK or k.shape[2] != D:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    for block, axis in ((block_q, S), (block_k, T)):
+        if _clamp_div(block, axis) is None:
+            raise ValueError(f"tile {block} does not divide axis {axis} "
+                             "after clamping")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must lie on one device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the kernel takes float32 or bfloat16, not "
+                        f"{q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
+    if BK > 65535 or S * G * D >= 2 ** 31 or T * D >= 2 ** 31:
+        raise ValueError(f"shape too large for the kernel: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    out = torch.empty_like(q)
+    lib = build()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            BK, S, T, G, D, int(causal), int(window),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_fwd failed to launch: CUDA "
+                           f"error {err}")
+    launches += 1
+    return out

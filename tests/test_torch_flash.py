@@ -1,0 +1,164 @@
+"""Flash attention: the port's wrapper against the reference's Pallas
+kernel (interpret mode, as the reference's own tests run it on the CPU),
+and the CUDA kernel against its plain version where a card is present.
+
+On the CPU the wrapper runs its plain PyTorch version; every registry
+tile is covered at ``tests/test_kernels.py``'s ``_FLASH_SHAPES`` sizes,
+with G = 1 and G = 5 (qwen2.5-14b's group, not a power of two), causal
+and sliding windows.  Tolerances are the reference's kernel sweep's:
+fp32 2e-5, bf16 2e-2.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels.ops as ref_ops
+import repro.kernels.ref as ref_ref
+import repro.kernels.variants as ref_variants
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref, variants
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# Registry tiles the port refuses though the reference admits them, with
+# the reason.  None: the CUDA kernel's tiling (64 rows x 32 keys) does not
+# depend on block_q/block_k, so every tile the reference admits launches.
+REFUSED_TILES = {}
+
+
+def _shapes(G):
+    return ((1, 128, 1, G, 8), (1, 128, 1, 8), (1, 128, 1, 8))
+
+
+def _inputs(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _cases():
+    cases = []
+    for G in (1, 5):
+        for v in ref_variants.variants_for("flash_attention", _shapes(G)):
+            for window in (0, 8, 32):
+                cases.append(pytest.param(G, v.kwargs(), window, "float32",
+                                          id=f"G{G}-{v.label}-w{window}-f32"))
+            cases.append(pytest.param(G, v.kwargs(), 0, "bfloat16",
+                                      id=f"G{G}-{v.label}-w0-bf16"))
+    return cases
+
+
+@pytest.mark.parametrize("G,tile,window,dtype", _cases())
+def test_wrapper_matches_reference_kernel(G, tile, window, dtype):
+    q, k, v = _inputs(_shapes(G), seed=G * 100 + window)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = ref_ops.flash_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), causal=True,
+        window=window, interpret=True, **tile)
+    got = ops.flash_attention(
+        *(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
+        causal=True, window=window, **tile)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_registry_matches_reference_but_for_refusals():
+    for G in (1, 5):
+        for shapes in (_shapes(G), ((1, 96, 1, G, 8), (1, 96, 1, 8),
+                                    (1, 96, 1, 8)),
+                       ((1, 4096, 8, G, 128), (1, 4096, 8, 128),
+                        (1, 4096, 8, 128))):
+            want = {v.label for v in
+                    ref_variants.variants_for("flash_attention", shapes)}
+            got = {v.label for v in
+                   variants.variants_for("flash_attention", shapes)}
+            assert got == want - set(REFUSED_TILES)
+    assert variants.KERNELS["flash_attention"]["grid"] == \
+        ref_variants.KERNELS["flash_attention"]["grid"]
+
+
+def test_numpy_in_numpy_out():
+    """Host blocks and the numpy backend hand the wrapper numpy arrays."""
+    q, k, v = _inputs(_shapes(5), seed=7)
+    got = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    want = ref_ref.flash_attention_ref(*(jnp.asarray(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_oracle_matches_reference_oracle(window):
+    q, k, v = _inputs(((2, 64, 2, 5, 16), (2, 64, 2, 16), (2, 64, 2, 16)),
+                      seed=3)
+    got = ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                  window=window)
+    want = ref_ref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                       window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_plain_path_launches_nothing():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(_shapes(1), seed=1))
+    before = fa.launches
+    ops.flash_attention(q, k, v)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("bad", [
+    dict(block_q=96),                               # does not divide S
+    dict(block_k=48),                               # does not divide T
+    dict(window=-1),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.from_numpy(x) for x in _inputs(_shapes(1), seed=2))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, **bad)
+
+
+def test_wrapper_rejects_mismatched_operands():
+    qf = torch.zeros(2, 64, 5, 16)
+    with pytest.raises(ValueError):
+        fa.flash_attention_folded(qf, torch.zeros(2, 64, 8),
+                                  torch.zeros(2, 64, 8))
+    with pytest.raises(TypeError):
+        fa.flash_attention_folded(qf, torch.zeros(2, 64, 16),
+                                  torch.zeros(2, 64, 16,
+                                              dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        fa.flash_attention_folded(qf.to("meta"), torch.zeros(2, 64, 16,
+                                                             device="meta"),
+                                  torch.zeros(2, 64, 16, device="meta"))
+
+
+# --- on the card ----------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_cuda_kernel_matches_plain(cuda, D, dtype, window):
+    rng = np.random.default_rng(D)
+    BK, S, G = 2, 96, 5
+    q = rng.standard_normal((BK, S, G, D)).astype(np.float32) / D ** 0.5
+    k = rng.standard_normal((BK, S, D)).astype(np.float32)
+    v = rng.standard_normal((BK, S, D)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+               for x in (q, k, v))
+    before = fa.launches
+    got = fa.flash_attention_folded(q, k, v, causal=True, window=window,
+                                    block_q=96, block_k=96)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])

@@ -1,0 +1,84 @@
+"""The port stands alone: importing all of ``repro_torch`` pulls in neither
+JAX nor any module of the reference package, and where there is no CUDA
+card its device entry points raise instead of running on the CPU."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "repro"
+                or m.startswith("repro."))
+assert not leaked, leaked
+assert len(names) >= 20, names
+
+import torch
+from repro_torch.core import TorchDeviceBackend, execute, get_backend, plan
+from repro_torch.polybench import build
+if torch.cuda.is_available():
+    assert get_backend(None).device.type == "cuda"
+else:
+    for make in (TorchDeviceBackend, lambda: get_backend(None),
+                 lambda: execute(plan(build("3mm", n=8)[0]))):
+        try:
+            make()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("a cuda backend was built without a card")
+print("isolated", len(names))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_port_imports_neither_jax_nor_reference():
+    res = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("isolated")
+
+
+def test_no_import_of_jax_or_reference_in_sources():
+    pattern = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        assert not pattern.search(f.read_text()), f
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
+    """Without a card, or copied away from the repo, chip_smoke.py exits
+    non-zero and prints no result line."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    else:
+        import torch
+        if torch.cuda.is_available():
+            pytest.skip("a card is present: chip_smoke.py runs for real")
+    res = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                         env={k: v for k, v in _env().items()
+                              if k != "PYTHONPATH"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
