@@ -6,20 +6,39 @@
 Drives the port's main path through its public entry points and checks it:
 
 1. environment: torch, CUDA, nvcc, triton, and the card with its power limit;
-2. build: compiles the flash-attention CUDA kernel from the repo's source;
-3. kernel vs plain: the kernel against its plain PyTorch version at the
-   attention width of qwen2.5-14b (q (1,4096,8,5,128), k and v
-   (1,4096,8,128)), causal and window=1024, fp32 and bf16, every registry
-   tile, with the kernel's, the plain version's and one PyTorch call's
-   (scaled_dot_product_attention, never called by the port) times beside
-   the card's bound;
+2. build: compiles the four CUDA kernels from the repo's sources, one
+   ``nvcc`` per source, all started together, each with its build time;
+3. kernel vs plain: each kernel against its plain PyTorch version on every
+   registry tile, with the kernel's, the plain version's and (where one
+   exists) one PyTorch call's time beside the card's bound:
+   flash attention at qwen2.5-14b's attention width (q (1,4096,8,5,128),
+   k and v (1,4096,8,128)), causal and window=1024, fp32 and bf16, beside
+   scaled_dot_product_attention; wkv6 at rwkv6-3b's width (r, k, v, w
+   (1,4096,40,64), u (40,64)), fp32 and bf16 r/k/v/u; rglru_scan at
+   recurrentgemma-2b's width (a, b (1,4096,2560) fp32); rmsnorm on
+   x (4096,2560), fp32 and bf16, beside torch.nn.functional.rms_norm.
+   The PyTorch calls are yardsticks the port never calls;
 4. polybench: the ten problems at their default sizes, optimized and naive
    plans, interpreted and compiled, on the torch backend on cuda, against
    the numpy host oracle;
 5. attn_step: the flash-attention step program at qwen width (2 steps),
    planned, verified and executed in both modes, with the kernel's launch
-   count read around the run.
+   count read around the run;
+6. model_forward: ``Transformer.loss`` for rwkv6-3b and recurrentgemma-2b
+   at full width, B = 1, S = 4096, with the port's own seeded weights:
+   (a) fp32 at a cut depth (4 and 8 layers), kernels (wkv6, rglru_scan,
+   flash) against the plain path, with the launch counts read around the
+   run, and the final hidden states held against each other too; (b) bf16
+   at full depth (32 and 26 layers) with kernels, timed with CUDA events,
+   and one forward under torch.profiler for the device's busy time and
+   its largest kernels;
+7. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
+   activations, fp32 and bf16, with its launch count read around it (no
+   model calls rmsnorm, as in the reference).
 
+Each kernel's ``launches`` in the kernels line sums the paths that ran it:
+attn_step and model_forward for flash, model_forward for wkv6 and
+rglru_scan, rmsnorm_path for rmsnorm; comparison launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -29,6 +48,7 @@ a CUDA card.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -43,6 +63,26 @@ BF16_TOL = 2e-2      # kernel vs plain, bf16 outputs (same)
 # another order than numpy's; checked normwise against the output's scale
 POLY_RTOL = 1e-3
 LOSS_RTOL = 1e-4     # attn_step final_loss vs the plain version on the card
+# kernel vs plain for the recurrences and the norm, as |err| <= tol x
+# (1 + |want|): the reference's kernel sweep tolerances (wkv6 2e-4,
+# rglru_scan 1e-5, rmsnorm fp32 1e-5, bf16 2e-2)
+WKV6_TOL = 2e-4
+RGLRU_TOL = 1e-5
+RMSNORM_TOL = 1e-5
+# model_forward: fp32 loss with kernels vs the plain path's, on the card
+FORWARD_RTOL = 1e-4
+
+# time_ms's spin before each timed call: about a millisecond of SM cycles
+HOLD_CYCLES = 2_000_000
+
+# the TPU kernel each CUDA kernel replaces
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
+            "wkv6": "src/repro/kernels/wkv6.py:86",
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:56",
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:22"}
+# model_forward's fp32 correctness run keeps this many layers (griffin:
+# 2 periods of (R, R, A) plus the 2-layer tail, so the tail path runs)
+MODEL_CUTS = {"rwkv6-3b": 4, "recurrentgemma-2b": 8}
 
 # NVIDIA data-sheet peaks (dense): fp32 outside the tensor cores, bf16 in
 # them, and memory bandwidth, keyed by the name nvidia-smi reports
@@ -71,7 +111,12 @@ def card_peaks(name: str) -> dict:
 
 
 def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median of ``reps`` warm calls, each timed with CUDA events."""
+    """Median of ``reps`` warm calls, each timed with CUDA events.  A short
+    spin on the stream (``torch.cuda._sleep``) precedes each call, so the
+    host enqueues the call while the card is busy and the events read the
+    device's time rather than the host's enqueue (a wrapper's Python takes
+    tens of microseconds, as long as the smaller kernels themselves).  A
+    plain version whose own host work outlasts the spin still shows it."""
     import torch
     for _ in range(warm):
         fn()
@@ -79,6 +124,7 @@ def time_ms(fn, reps: int = 10, warm: int = 2) -> float:
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -111,11 +157,26 @@ def phase_environment() -> str:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import flash_attention as fa
+    """Start one nvcc per kernel source, all at once, and wait for all."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import flash_attention, rglru_scan, rmsnorm, wkv6
+
+    def build(mod):
+        t = time.perf_counter()
+        lib = mod.build()
+        return lib._name, time.perf_counter() - t
+
+    mods = {"flash_attention": flash_attention, "wkv6": wkv6,
+            "rglru_scan": rglru_scan, "rmsnorm": rmsnorm}
     t = time.perf_counter()
-    lib = fa.build()
-    report("build", kernel="flash_attention", seconds=time.perf_counter() - t,
-           library=lib._name)
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futures = {name: pool.submit(build, mod)
+                   for name, mod in mods.items()}
+        for name, fut in futures.items():
+            library, seconds = fut.result()
+            report("build", kernel=name, seconds=seconds, library=library)
+    report("build", kernel="all", seconds=time.perf_counter() - t)
 
 
 def _bound(shape, dtype_name: str, window: int, peaks: dict):
@@ -205,6 +266,171 @@ def phase_kernel(peaks: dict) -> dict:
             del want, out
         del q, k, v, qf, kf, vf
         torch.cuda.empty_cache()
+    return main
+
+
+def _close(got, want, tol: float):
+    """Max abs error, and whether |got - want| <= tol * (1 + |want|)
+    holds everywhere (the recurrences' outputs grow with the state)."""
+    diff = (got.float() - want.float()).abs()
+    scaled = (diff / (1.0 + want.float().abs())).max().item()
+    return diff.max().item(), scaled <= tol
+
+
+def _bound_ms(flops: float, nbytes: float, peak_flops: float, peaks: dict):
+    ops_ms = flops / peak_flops * 1e3
+    bytes_ms = nbytes / peaks["bytes"] * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_wkv6_kernel(peaks: dict) -> dict:
+    """wkv6 at rwkv6-3b width: r, k, v, w (1, 4096, 40, 64), u (40, 64);
+    fp32, and bf16 r/k/v/u (w stays fp32, as the model computes it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, variants
+    from repro_torch.kernels import wkv6 as wk
+
+    cfg = get_config("rwkv6-3b")
+    hs = cfg.rwkv_head_size
+    B, T, H = 1, 4096, cfg.d_model // hs
+    rng = np.random.default_rng(1)
+    host = [rng.standard_normal((B, T, H, hs)).astype(np.float32)
+            for _ in range(3)]
+    host.append(rng.uniform(0.2, 0.99, (B, T, H, hs)).astype(np.float32))
+    host.append(rng.standard_normal((H, hs)).astype(np.float32))
+    tiles = variants.variants_for("wkv6", [x.shape for x in host])
+    check(len(tiles) == 3, f"want all 3 registry tiles, got {len(tiles)}")
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, T, hs).contiguous()
+
+    main = None
+    for dtype in (torch.float32, torch.bfloat16):
+        r, k, v, w, u = (torch.from_numpy(x).cuda() for x in host)
+        r, k, v, u = (x.to(dtype) for x in (r, k, v, u))
+        folded = [fold(x) for x in (r, k, v, w)] + [u.contiguous()]
+        want_o, want_s = wk.wkv6_plain(*folded)
+        errs = []
+        for tile in tiles:
+            o, s = ops.wkv6(r, k, v, w, u, **tile.kwargs())
+            torch.cuda.synchronize()
+            for got, want in ((fold(o), want_o), (s.reshape(B * H, hs, hs),
+                                                  want_s)):
+                err, ok = _close(got, want, WKV6_TOL)
+                check(ok, f"wkv6 kernel vs plain {dtype} {tile.label}: "
+                      f"max abs err {err} beyond {WKV6_TOL} x (1 + |want|)")
+                errs.append(err)
+        kernel_ms = time_ms(lambda: wk.wkv6_folded(*folded))
+        plain_ms = time_ms(lambda: wk.wkv6_plain(*folded), reps=3, warm=1)
+        item = r.element_size()
+        flops = float(B * H * T * (5 * hs * hs + 5 * hs))
+        nbytes = float(B * H * T * hs * (3 * item + 4 + 4)
+                       + H * hs * item + B * H * hs * hs * 4)
+        bound_ms, bound_by = _bound_ms(flops, nbytes, peaks["fp32"], peaks)
+        dname = str(dtype).replace("torch.", "")
+        row = {"dtype": dname, "tol": WKV6_TOL, "max_abs_err": max(errs),
+               "tiles": len(tiles), "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes}
+        report("kernel_vs_plain", kernel="wkv6", r=[B, T, H, hs],
+               u=[H, hs], **row)
+        if dtype is torch.float32:
+            main = row
+        del r, k, v, w, u, folded, want_o, want_s, o, s
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_rglru_kernel(peaks: dict) -> dict:
+    """rglru_scan at recurrentgemma-2b width: a, b (1, 4096, 2560) fp32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, variants
+    from repro_torch.kernels import rglru_scan as rg
+
+    cfg = get_config("recurrentgemma-2b")
+    B, T, D = 1, 4096, cfg.d_model
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.uniform(0.4, 0.999, (B, T, D))
+                         .astype(np.float32)).cuda()
+    b = torch.from_numpy(rng.standard_normal((B, T, D))
+                         .astype(np.float32)).cuda()
+    tiles = variants.variants_for("rglru_scan", [a.shape, b.shape])
+    check(len(tiles) == 3, f"want all 3 registry tiles, got {len(tiles)}")
+    want = rg.rglru_scan_plain(a, b)
+    errs = []
+    for tile in tiles:
+        got = ops.rglru_scan(a, b, **tile.kwargs())
+        torch.cuda.synchronize()
+        err, ok = _close(got, want, RGLRU_TOL)
+        check(ok, f"rglru_scan kernel vs plain {tile.label}: max abs err "
+              f"{err} beyond {RGLRU_TOL} x (1 + |want|)")
+        errs.append(err)
+    kernel_ms = time_ms(lambda: rg.rglru_scan(a, b))
+    plain_ms = time_ms(lambda: rg.rglru_scan_plain(a, b), reps=3, warm=1)
+    flops, nbytes = 2.0 * B * T * D, 12.0 * B * T * D
+    bound_ms, bound_by = _bound_ms(flops, nbytes, peaks["fp32"], peaks)
+    row = {"dtype": "float32", "tol": RGLRU_TOL, "max_abs_err": max(errs),
+           "tiles": len(tiles), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "flops": flops, "bytes": nbytes}
+    report("kernel_vs_plain", kernel="rglru_scan", a=[B, T, D], **row)
+    return row
+
+
+def phase_rmsnorm_kernel(peaks: dict) -> dict:
+    """rmsnorm on x (4096, 2560), fp32 and bf16, with
+    torch.nn.functional.rms_norm (never called by the port) timed beside
+    it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, variants
+    from repro_torch.kernels import rmsnorm as rn
+
+    N, D = 4096, 2560
+    rng = np.random.default_rng(3)
+    hx = rng.standard_normal((N, D)).astype(np.float32)
+    hw = (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    tiles = variants.variants_for("rmsnorm", [hx.shape, hw.shape])
+    check(len(tiles) == 4, f"want all 4 registry tiles, got {len(tiles)}")
+    main = None
+    for dtype, tol in ((torch.float32, RMSNORM_TOL),
+                       (torch.bfloat16, BF16_TOL)):
+        x = torch.from_numpy(hx).to("cuda", dtype)
+        w = torch.from_numpy(hw).to("cuda", dtype)
+        want = rn.rmsnorm_plain(x, w)
+        errs = []
+        for tile in tiles:
+            got = ops.rmsnorm(x, w, **tile.kwargs())
+            torch.cuda.synchronize()
+            err, ok = _close(got, want, tol)
+            check(ok, f"rmsnorm kernel vs plain {dtype} {tile.label}: max "
+                  f"abs err {err} beyond {tol} x (1 + |want|)")
+            errs.append(err)
+        kernel_ms = time_ms(lambda: rn.rmsnorm(x, w))
+        plain_ms = time_ms(lambda: rn.rmsnorm_plain(x, w))
+        library_ms = time_ms(lambda: F.rms_norm(x, (D,), w, eps=1e-6))
+        item = x.element_size()
+        flops, nbytes = 4.0 * N * D, float((2 * N * D + D) * item)
+        bound_ms, bound_by = _bound_ms(flops, nbytes, peaks["fp32"], peaks)
+        dname = str(dtype).replace("torch.", "")
+        row = {"dtype": dname, "tol": tol, "max_abs_err": max(errs),
+               "tiles": len(tiles), "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes}
+        report("kernel_vs_plain", kernel="rmsnorm", x=[N, D], **row)
+        if dtype is torch.float32:
+            main = row
     return main
 
 
@@ -308,6 +534,206 @@ def phase_attn_step() -> int:
     return launches
 
 
+def _model_kernels() -> dict:
+    from repro_torch.kernels import flash_attention, rglru_scan, wkv6
+    return {"wkv6": wkv6, "rglru_scan": rglru_scan,
+            "flash_attention": flash_attention}
+
+
+def _launch_counts() -> dict:
+    return {name: mod.launches for name, mod in _model_kernels().items()}
+
+
+def _set_launch_counts(counts: dict) -> None:
+    for name, mod in _model_kernels().items():
+        mod.launches = counts[name]
+
+
+def _expected_launches(cfg, n_forwards: int = 1) -> dict:
+    kinds = cfg.layer_kinds()
+    return {"wkv6": n_forwards * kinds.count("rwkv"),
+            "rglru_scan": n_forwards * kinds.count("rglru"),
+            "flash_attention": n_forwards * kinds.count("attn")}
+
+
+def _perturb_constants(params, generator, scale: float = 0.1) -> None:
+    """Add seeded noise to every leaf the init sets to a constant (conv
+    weights, lerp mixes, decays, gains), in place, so that every branch of
+    the forward carries a signal (a zero conv makes the RG-LRU input 0)."""
+    import torch
+    for v in params.values():
+        if isinstance(v, dict):
+            _perturb_constants(v, generator, scale)
+        elif bool((v == v.reshape(-1)[0]).all()):
+            v.add_(scale * torch.randn(v.shape, generator=generator,
+                                       device=v.device))
+
+
+def phase_model_forward(name: str, cut_layers: int, reps: int = 3) -> dict:
+    """Transformer.loss at full width, B = 1, S = 4096, with the port's
+    own seeded weights: (a) fp32 at a cut depth, kernels vs the plain
+    path; (b) bf16 at full depth, with kernels, timed.  Returns the
+    kernels' launches over both runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    full = get_config(name)
+    B, S = 1, 4096
+    gen = torch.Generator("cuda").manual_seed(0)
+    batch = {k: torch.randint(0, full.vocab, (B, S), generator=gen,
+                              device="cuda") for k in ("tokens", "labels")}
+
+    # (a) correctness: fp32, cut depth, kernels vs the plain path
+    cfg = dataclasses.replace(full, n_layers=cut_layers, dtype="float32")
+    params = Transformer(cfg).init(gen)
+    _perturb_constants(params, gen)
+    kernels, plain = (Transformer(cfg, use_pallas=p) for p in (True, False))
+    _set_launch_counts(dict.fromkeys(_model_kernels(), 0))  # run starts
+    t = time.perf_counter()
+    loss_k, _ = kernels.loss(params, batch)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    counts_a = _launch_counts()
+    t = time.perf_counter()
+    loss_p, _ = plain.loss(params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    check(_launch_counts() == counts_a, "the plain path launched a kernel")
+    check(counts_a == _expected_launches(cfg),
+          f"{name} fp32: launches {counts_a}, want "
+          f"{_expected_launches(cfg)}")
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(math.isfinite(loss_k) and rel <= FORWARD_RTOL,
+          f"{name} fp32 loss with kernels {loss_k} vs plain {loss_p}: rel "
+          f"err {rel} > {FORWARD_RTOL}")
+    # the loss of random weights barely moves with the hidden states, so
+    # the states the head reads are held against each other too (these
+    # two calls are comparisons: their launches are not counted)
+    before = _launch_counts()
+    h_k, h_p = kernels.hidden(params, batch), plain.hidden(params, batch)
+    _set_launch_counts(before)
+    h_rel = ((h_k - h_p).abs().max() / h_p.abs().max()).item()
+    check(h_k.shape == (B, S, cfg.d_model) and math.isfinite(h_rel)
+          and h_rel <= FORWARD_RTOL,
+          f"{name} fp32 hidden states with kernels vs plain: max abs err "
+          f"{h_rel} of their scale > {FORWARD_RTOL}")
+    report("model_forward", model=name, run="fp32_cut_depth",
+           n_layers=cut_layers, batch=B, seq=S, loss_kernels=loss_k,
+           loss_plain=loss_p, rel_err=rel, hidden_rel_err=h_rel,
+           tol=FORWARD_RTOL, launches=counts_a, wall_s_kernels=kernel_s,
+           wall_s_plain=plain_s)
+    del h_k, h_p
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) timed: bf16, full depth, with kernels
+    params = Transformer(full).init(gen, dtype=torch.bfloat16)
+    n_params = sum(_leaf_sizes(params))
+    model = Transformer(full, use_pallas=True)
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_counts()
+    loss_b, _ = model.loss(params, batch)                   # warm-up
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss_b, _ = model.loss(params, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    top, busy_ms = _profile(lambda: model.loss(params, batch))
+    counts_b = {k: v - before[k] for k, v in _launch_counts().items()}
+    want_b = _expected_launches(full, reps + 2)
+    check(counts_b == want_b, f"{name} bf16: launches {counts_b}, want "
+          f"{want_b}")
+    loss_b = float(loss_b)
+    check(math.isfinite(loss_b), f"{name} bf16 loss is {loss_b}")
+    wall_ms = sorted(times)[len(times) // 2]
+    report("model_forward", model=name, run="bf16_full_depth",
+           n_layers=full.n_layers, batch=B, seq=S, params=n_params,
+           loss=loss_b, wall_ms=wall_ms, wall_ms_all=times,
+           tokens_per_s=B * S / wall_ms * 1e3,
+           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+           launches_per_forward=_expected_launches(full),
+           device_busy_ms=busy_ms,
+           device_busy_share=None if busy_ms is None else busy_ms / wall_ms,
+           top_device_ms=top)
+    del params
+    torch.cuda.empty_cache()
+    return {k: counts_a[k] + counts_b[k] for k in counts_a}
+
+
+def _profile(fn, n_top: int = 8):
+    """One call of fn under torch.profiler: the device time of its
+    kernels in all, in ms, and the n_top kernels by device time, as
+    [[name, ms, calls], ...].  (None, None) where the profiler sees no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: a CPU op also reports its kernels'
+        # time, which would count each kernel twice
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            rows.append([e.key[:90], e.self_device_time_total / 1e3,
+                         e.count])
+    if not rows:
+        return None, None
+    rows.sort(key=lambda r: -r[1])
+    return rows[:n_top], sum(r[1] for r in rows)
+
+
+def _leaf_sizes(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaf_sizes(v)
+        else:
+            yield v.numel()
+
+
+def phase_rmsnorm_path() -> int:
+    """rmsnorm's entry point, ops.rmsnorm, on (1, 4096, 2560) activations
+    in fp32 and bf16 with its default tile: the reference's only way to
+    reach the kernel (no model calls it)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    x = torch.randn((1, 4096, 2560), generator=gen, device="cuda")
+    w = 1.0 + 0.1 * torch.randn((2560,), generator=gen, device="cuda")
+    rn.launches = 0            # the path's run starts here
+    outs = {dt: ops.rmsnorm(x.to(dt), w.to(dt))
+            for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.synchronize()
+    launches = rn.launches     # ... and ends here
+    check(launches == 2, f"rmsnorm path: {launches} launches, want 2")
+    errs = {}
+    for dt, out in outs.items():
+        tol = RMSNORM_TOL if dt is torch.float32 else BF16_TOL
+        want = rn.rmsnorm_plain(x.to(dt).reshape(-1, 2560), w.to(dt))
+        err, ok = _close(out.reshape(-1, 2560), want, tol)
+        check(out.shape == x.shape and out.dtype == dt and ok,
+              f"rmsnorm path {dt}: shape {tuple(out.shape)}, max abs err "
+              f"{err} beyond {tol} x (1 + |want|)")
+        errs[str(dt).replace("torch.", "")] = err
+    report("rmsnorm_path", x=list(x.shape), launches=launches,
+           max_abs_err=errs)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -316,17 +742,24 @@ def main() -> int:
     smi = phase_environment()
     peaks = card_peaks(torch.cuda.get_device_name(0))
     phase_build()
-    main_row = phase_kernel(peaks)
+    rows = {"flash_attention": phase_kernel(peaks),
+            "wkv6": phase_wkv6_kernel(peaks),
+            "rglru_scan": phase_rglru_kernel(peaks),
+            "rmsnorm": phase_rmsnorm_kernel(peaks)}
     phase_polybench()
-    launches = phase_attn_step()
+    launches = {"flash_attention": phase_attn_step()}
+    for name, cut in MODEL_CUTS.items():
+        for kernel, n in phase_model_forward(name, cut).items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    launches["rmsnorm"] = phase_rmsnorm_path()
     print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:80",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}), flush=True)
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": REPLACES[name], "launches": launches[name],
+        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        for name, row in rows.items()]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,22 +15,17 @@ reference does (clamp to the axis, then require it to divide), so every
 registry tile is legal here too; the CUDA kernel's own tiling (64 rows x
 32 keys) does not depend on them.
 
-The kernel is built with ``nvcc`` at first use into ``build/`` at the
-root of the checkout, keyed on a hash of the source and flags, and bound
-with ``ctypes``.  ``launches`` counts kernel launches (never plain-path
-calls); callers reset it by assigning 0.
+The kernel is built with ``nvcc`` at first use (``_build.load``) and
+bound with ``ctypes``.  ``launches`` counts kernel launches (never
+plain-path calls); callers reset it by assigning 0.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import _build
 from .variants import _clamp_div
 
 __all__ = ["flash_attention_folded", "flash_attention_plain", "build",
@@ -41,10 +36,6 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # head dims the kernel is built for
 
 launches = 0
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _lib = None
 
 
@@ -53,22 +44,7 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _BUILD_ROOT / f"flash_attention-{digest}"
-    lib_path = out_dir / "libflash_attention.so"
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libflash_attention.{os.getpid()}.so"
-        res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp),
-                              str(_SOURCE)], capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}{res.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]

@@ -1,9 +1,10 @@
 """Model-facing wrappers for the hand-written kernels.
 
 These fold the model layouts into the kernel layouts.  They take torch
-tensors (CUDA tensors reach the CUDA kernel, CPU tensors its plain
-version) or numpy arrays, which host blocks and the numpy backend pass:
-those run the plain version on the CPU and come back as numpy.
+tensors: CUDA tensors reach the CUDA kernel, CPU tensors its plain
+version.  ``flash_attention`` also takes numpy arrays, which host blocks
+and the numpy backend pass: those run the plain version on the CPU and
+come back as numpy.
 """
 from __future__ import annotations
 
@@ -11,8 +12,12 @@ import numpy as np
 import torch
 
 from . import flash_attention as _fa
+from . import rglru_scan as _rg
+from . import rmsnorm as _rn
+from . import wkv6 as _wkv
 
-__all__ = ["flash_attention", "fold_attention"]
+__all__ = ["flash_attention", "fold_attention", "rglru_scan", "wkv6",
+           "rmsnorm"]
 
 
 def fold_attention(q, k, v):
@@ -41,3 +46,37 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    window=window, block_q=block_q,
                                    block_k=block_k)
     return o.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4)
+
+
+def rglru_scan(a, b, *, block_t: int = 256):
+    """a, b: (B, T, D) → h (B, T, D) fp32."""
+    return _rg.rglru_scan(a, b, block_t=block_t)
+
+
+def wkv6(r, k, v, w, u, *, block_t: int = 64):
+    """r, k, v, w: (B, T, H, hs); u: (H, hs).
+    Returns (o (B, T, H, hs) fp32, state (B, H, hs, hs) fp32).  w goes to
+    the kernel in fp32, the type the kernel computes it in."""
+    B, T, H, hs = r.shape
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, T, hs).contiguous()
+
+    uu = u[None].expand(B, H, hs).reshape(B * H, hs).contiguous()
+    o, s = _wkv.wkv6_folded(fold(r), fold(k), fold(v), fold(w.float()), uu,
+                            block_t=block_t)
+    o = o.reshape(B, H, T, hs).permute(0, 2, 1, 3)
+    return o, s.reshape(B, H, hs, hs)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6, block_rows: int = 256):
+    """x: (..., D); w: (D,).  Halves ``block_rows`` until it divides the
+    row count, as the reference's wrapper does."""
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1]).contiguous()
+    n = xf.shape[0]
+    br = block_rows
+    while n % br:
+        br //= 2
+    o = _rn.rmsnorm(xf, w, eps=eps, block_rows=max(br, 1))
+    return o.reshape(shape)

@@ -1,0 +1,140 @@
+"""Shared NN layers: param specs, norms, RoPE, FFN variants, the loss.
+
+The port of ``src/repro/models/layers.py``.  Params are plain nested dicts
+of tensors, made from a tree of ``P`` specs.  ``P`` keeps the reference's
+logical axes, which a later mesh slice maps onto devices; this slice runs
+on one device, so only ``policy=None`` is taken (``no_policy``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["P", "init_tree", "no_policy", "rms_norm", "gelu",
+           "apply_rope", "rope_freqs", "ffn_apply", "ffn_spec",
+           "cross_entropy"]
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Param spec leaf: shape + logical axes + initializer."""
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"      # normal | zeros | ones
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in length")
+
+
+def init_tree(spec: Dict[str, Any], generator: torch.Generator, device,
+              dtype: torch.dtype) -> Dict[str, Any]:
+    """Materialize a spec tree on ``device``: normal x scale/sqrt(fan_in),
+    zeros or ones, as the reference draws them (its values differ: the
+    generators differ).  ``generator`` lives on ``device``; leaves are
+    drawn in sorted key order, the order ``jax.tree`` flattens a dict in."""
+    def make(leaf: P) -> torch.Tensor:
+        if leaf.init == "zeros":
+            return torch.zeros(leaf.shape, dtype=dtype, device=device)
+        if leaf.init == "ones":
+            return torch.ones(leaf.shape, dtype=dtype, device=device)
+        fan_in = leaf.shape[-2] if len(leaf.shape) >= 2 else leaf.shape[-1]
+        std = leaf.scale / math.sqrt(max(fan_in, 1))
+        t = torch.empty(leaf.shape, dtype=torch.float32, device=device)
+        return t.normal_(0.0, std, generator=generator).to(dtype)
+
+    def walk(tree):
+        return {k: walk(tree[k]) if isinstance(tree[k], dict)
+                else make(tree[k]) for k in sorted(tree)}
+    return walk(spec)
+
+
+def no_policy(policy) -> None:
+    """Sharding hints wait for the mesh slice: only ``None`` is taken."""
+    if policy is not None:
+        raise NotImplementedError("sharding policies come with the mesh "
+                                  "slice of the port; pass policy=None")
+
+
+# ---------------------------------------------------------------------------
+# Norms / RoPE / FFN / losses
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    if x.dtype == torch.float32:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + eps) * weight
+    # low-precision path: the sum of squares accumulates in fp32 and inv
+    # is cast to x's type BEFORE the multiply, as the reference does
+    x32 = x.float()
+    var = (x32 * x32).sum(dim=-1) / x.shape[-1]
+    inv = torch.rsqrt(var + eps)
+    return (x * inv[..., None].to(x.dtype)) * weight
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def rope_freqs(d_head: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: (..., S) integer."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)            # (D/2,)
+    ang = positions[..., None].float() * freqs               # (..., S, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def ffn_spec(d_model: int, d_ff: int, activation: str,
+             prefix_axes: Tuple[int, ...] = (),
+             prefix_names: Tuple[str, ...] = ()) -> Dict[str, P]:
+    """FFN params; ``prefix_axes/names`` prepend stacking dims (layers)."""
+    pa, pn = tuple(prefix_axes), tuple(prefix_names)
+    if activation in ("swiglu", "geglu"):
+        return {
+            "w_gate": P(pa + (d_model, d_ff), pn + ("embed", "ffn")),
+            "w_up":   P(pa + (d_model, d_ff), pn + ("embed", "ffn")),
+            "w_down": P(pa + (d_ff, d_model), pn + ("ffn", "embed")),
+        }
+    # sq_relu (Primer / Nemotron-4) and friends: two matrices
+    return {
+        "w_up":   P(pa + (d_model, d_ff), pn + ("embed", "ffn")),
+        "w_down": P(pa + (d_ff, d_model), pn + ("ffn", "embed")),
+    }
+
+
+def ffn_apply(params, x, activation: str, policy=None):
+    no_policy(policy)
+    if activation in ("swiglu", "geglu"):
+        act = F.silu if activation == "swiglu" else gelu
+        h = act(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif activation == "sq_relu":
+        h = torch.square(F.relu(x @ params["w_up"]))
+    else:
+        raise ValueError(activation)
+    return h @ params["w_down"]
+
+
+def cross_entropy(logits, labels, ignore_label: int = -1):
+    """Mean CE in fp32; labels == ignore_label are masked out."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels != ignore_label).float()
+    loss = (logz - gold) * mask
+    return loss.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -10,3 +10,9 @@ def _isolated_tune_cache(tmp_path, monkeypatch):
     test, repeated tune() calls still share the cache — which is how
     the cache-hit tests exercise it."""
     monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tunecache"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the "
+        "card with `pytest -m cuda tests/test_torch_cuda.py`")

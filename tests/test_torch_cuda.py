@@ -1,0 +1,153 @@
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version, and the model forward with kernels against its plain
+path.  Every test needs a card and skips without one (the kernels have no
+CPU mode).  The file imports neither JAX nor the reference, so it runs on
+a machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances are the reference's kernel sweeps' (flash fp32 2e-5, bf16
+2e-2; wkv6 2e-4; rglru_scan 1e-5; rmsnorm fp32 1e-5, bf16 2e-2) and 1e-4
+relative on the fp32 loss.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.models import Transformer
+
+pytestmark = pytest.mark.cuda
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+WKV6_TOL = 2e-4
+RGLRU_TOL = 1e-5
+RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _normal(shape, rng):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_cuda_kernel_matches_plain(cuda, D, dtype, window):
+    rng = np.random.default_rng(D)
+    BK, S, G = 2, 96, 5
+    q = _normal((BK, S, G, D), rng) / D ** 0.5
+    k, v = _normal((BK, S, D), rng), _normal((BK, S, D), rng)
+    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+               for x in (q, k, v))
+    before = fa.launches
+    got = fa.flash_attention_folded(q, k, v, causal=True, window=window,
+                                    block_q=96, block_k=96)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hs", wk.HEAD_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv6_matches_plain(cuda, hs, dtype):
+    rng = np.random.default_rng(hs)
+    B, T, H = 2, 100, 3
+    r, k, v = (_normal((B, T, H, hs), rng) for _ in range(3))
+    w = rng.uniform(0.2, 0.99, (B, T, H, hs)).astype(np.float32)
+    u = _normal((H, hs), rng)
+    tdt = getattr(torch, dtype)
+    r, k, v, u = (torch.from_numpy(x).to(cuda, tdt) for x in (r, k, v, u))
+    w = torch.from_numpy(w).to(cuda)
+    before = wk.launches
+    o, s = ops.wkv6(r, k, v, w, u, block_t=100)
+    torch.cuda.synchronize()
+    assert wk.launches == before + 1
+
+    def fold(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, T, hs).contiguous()
+    uu = u[None].expand(B, H, hs).reshape(B * H, hs).contiguous()
+    want_o, want_s = wk.wkv6_plain(fold(r), fold(k), fold(v), fold(w), uu)
+    np.testing.assert_allclose(fold(o).cpu().numpy(), want_o.cpu().numpy(),
+                               rtol=WKV6_TOL, atol=WKV6_TOL)
+    np.testing.assert_allclose(s.reshape(B * H, hs, hs).cpu().numpy(),
+                               want_s.cpu().numpy(), rtol=WKV6_TOL,
+                               atol=WKV6_TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 5), (2, 256, 2560), (3, 17, 33)])
+def test_cuda_rglru_scan_matches_plain(cuda, shape):
+    rng = np.random.default_rng(shape[1])
+    a = torch.from_numpy(rng.uniform(0.4, 0.999, shape).astype(np.float32))
+    b = torch.from_numpy(_normal(shape, rng))
+    a, b = a.to(cuda), b.to(cuda)
+    before = rg.launches
+    got = rg.rglru_scan(a, b, block_t=shape[1])
+    torch.cuda.synchronize()
+    assert rg.launches == before + 1
+    want = rg.rglru_scan_plain(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RGLRU_TOL, atol=RGLRU_TOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 32), (64, 2560), (5, 7000)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_matches_plain(cuda, shape, dtype):
+    rng = np.random.default_rng(shape[1])
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(_normal(shape, rng)).to(cuda, tdt)
+    w = torch.from_numpy(_normal(shape[-1:], rng)).to(cuda, tdt)
+    before = rn.launches
+    got = rn.rmsnorm(x, w, block_rows=shape[0])
+    torch.cuda.synchronize()
+    assert rn.launches == before + 1
+    want = rn.rmsnorm_plain(x, w)
+    tol = RMSNORM_TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def _perturb_constants(params, generator):
+    """Seeded noise on every constant-initialised leaf, so every branch of
+    the forward carries a signal."""
+    for v in params.values():
+        if isinstance(v, dict):
+            _perturb_constants(v, generator)
+        elif bool((v == v.reshape(-1)[0]).all()):
+            v.add_(0.1 * torch.randn(v.shape, generator=generator,
+                                     device=v.device))
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b", "recurrentgemma-2b",
+                                  "qwen2.5-14b"])
+def test_cuda_kernel_loss_matches_plain_loss(cuda, name):
+    cfg = reduced(get_config(name))
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = Transformer(cfg).init(gen)
+    _perturb_constants(params, gen)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 128), generator=gen,
+                              device=cuda) for k in ("tokens", "labels")}
+    before = (wk.launches, rg.launches, fa.launches)
+    got, _ = Transformer(cfg, use_pallas=True).loss(params, batch)
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    assert (wk.launches - before[0], rg.launches - before[1],
+            fa.launches - before[2]) == (kinds.count("rwkv"),
+                                         kinds.count("rglru"),
+                                         kinds.count("attn"))
+    want, _ = Transformer(cfg).loss(params, batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)

@@ -1,6 +1,6 @@
 """Flash attention: the port's wrapper against the reference's Pallas
-kernel (interpret mode, as the reference's own tests run it on the CPU),
-and the CUDA kernel against its plain version where a card is present.
+kernel (interpret mode, as the reference's own tests run it on the CPU).
+The CUDA kernel against its plain version is in ``test_torch_cuda.py``.
 
 On the CPU the wrapper runs its plain PyTorch version; every registry
 tile is covered at ``tests/test_kernels.py``'s ``_FLASH_SHAPES`` sizes,
@@ -131,34 +131,3 @@ def test_wrapper_rejects_mismatched_operands():
         fa.flash_attention_folded(qf.to("meta"), torch.zeros(2, 64, 16,
                                                              device="meta"),
                                   torch.zeros(2, 64, 16, device="meta"))
-
-
-# --- on the card ----------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.parametrize("D", fa.HEAD_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 8])
-def test_cuda_kernel_matches_plain(cuda, D, dtype, window):
-    rng = np.random.default_rng(D)
-    BK, S, G = 2, 96, 5
-    q = rng.standard_normal((BK, S, G, D)).astype(np.float32) / D ** 0.5
-    k = rng.standard_normal((BK, S, D)).astype(np.float32)
-    v = rng.standard_normal((BK, S, D)).astype(np.float32)
-    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
-               for x in (q, k, v))
-    before = fa.launches
-    got = fa.flash_attention_folded(q, k, v, causal=True, window=window,
-                                    block_q=96, block_k=96)
-    torch.cuda.synchronize()
-    assert fa.launches == before + 1
-    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(),
-                               rtol=TOL[dtype], atol=TOL[dtype])

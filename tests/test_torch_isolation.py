@@ -1,6 +1,7 @@
-"""The port stands alone: importing all of ``repro_torch`` pulls in neither
-JAX nor any module of the reference package, and where there is no CUDA
-card its device entry points raise instead of running on the CPU."""
+"""The port stands alone: importing all of ``repro_torch`` (its models
+included) pulls in neither JAX nor any module of the reference package,
+and where there is no CUDA card its device entry points (the backend,
+``execute``, ``Transformer.init``) raise instead of running on the CPU."""
 import os
 import re
 import shutil
@@ -26,13 +27,19 @@ assert not leaked, leaked
 assert len(names) >= 20, names
 
 import torch
+from repro_torch.configs import get_config, reduced
 from repro_torch.core import TorchDeviceBackend, execute, get_backend, plan
+from repro_torch.models import Transformer
 from repro_torch.polybench import build
+model = Transformer(reduced(get_config("rwkv6-3b")), use_pallas=True)
 if torch.cuda.is_available():
     assert get_backend(None).device.type == "cuda"
+    params = model.init(torch.Generator("cuda"))
+    assert params["embed"].device.type == "cuda"
 else:
     for make in (TorchDeviceBackend, lambda: get_backend(None),
-                 lambda: execute(plan(build("3mm", n=8)[0]))):
+                 lambda: execute(plan(build("3mm", n=8)[0])),
+                 lambda: model.init(torch.Generator())):
         try:
             make()
         except RuntimeError as e:
