@@ -1,23 +1,36 @@
-"""Causal/sliding-window GQA flash attention forward: the CUDA kernel for
-Hopper, its wrapper and its plain PyTorch version.
+"""Causal/sliding-window GQA flash attention forward: the two CUDA kernels
+for Hopper, their wrapper and the plain PyTorch version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+Both kernels replace the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py:flash_attention_folded`` (body
-``_flash_kernel``).  It is bound by operations on an H100 (fp32 FMAs on
-the CUDA cores at the width it serves); the source says what its design
-does about that, and how it fits the TPU's VMEM-sized tiles into an SM.
+``_flash_kernel``); ``route(dtype, D)`` picks one from the type and the
+head dim alone:
+
+- ``"sm90"`` (``csrc/flash_attention_sm90.cu``): bf16 with D in
+  ``SM90_HEAD_DIMS``, on the tensor cores (TMA loads, wgmma products in
+  fp32, the softmax weights rounded to bf16 before P.V);
+- ``"simt"`` (``csrc/flash_attention.cu``): every other case (fp32, and
+  bf16 with D < 64), fp32 FMAs on the CUDA cores.  fp32 stays there: TF32
+  tensor cores keep about three decimal digits, too few for the 2e-5
+  tolerance of the reference's sweep.
+
+This is a dispatch by shape, not a fallback: a build or launch failure on
+either route raises.  Both are bound by operations on an H100; each source
+says what its design does about that.
 
 Layouts (folded in ``ops.py``): q (BK, S, G, D) pre-scaled by 1/sqrt(D);
 k, v (BK, T, D) where BK = batch x kv_heads.  Output: (BK, S, G, D).
 
 The tile parameters ``block_q``/``block_k`` are validated exactly as the
 reference does (clamp to the axis, then require it to divide), so every
-registry tile is legal here too; the CUDA kernel's own tiling (64 rows x
-32 keys) does not depend on them.
+registry tile is legal here too; neither kernel's own tiling (SIMT: 64
+rows x 32 keys; sm90: 128 rows x 128 or 64 keys) depends on them.
 
-The kernel is built with ``nvcc`` at first use (``_build.load``) and
-bound with ``ctypes``.  ``launches`` counts kernel launches (never
-plain-path calls); callers reset it by assigning 0.
+The kernels are built with ``nvcc`` at first use (``_build.load``;
+the sm90 one links ``-lcuda`` for its TMA descriptors) and bound with
+``ctypes``.  ``launches`` counts kernel launches on either route, and
+``launches_sm90`` / ``launches_simt`` each route's (never plain-path
+calls); callers reset them by assigning 0.
 """
 from __future__ import annotations
 
@@ -29,14 +42,26 @@ from . import _build
 from .variants import _clamp_div
 
 __all__ = ["flash_attention_folded", "flash_attention_plain", "build",
-           "launches", "NEG_INF", "HEAD_DIMS"]
+           "build_sm90", "route", "launches", "launches_sm90",
+           "launches_simt", "NEG_INF", "HEAD_DIMS", "SM90_HEAD_DIMS"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # head dims the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)     # head dims the kernels are built for
+SM90_HEAD_DIMS = (64, 128, 256)           # ... of which bf16 takes the sm90 one
 
 launches = 0
+launches_sm90 = 0
+launches_simt = 0
 
 _lib = None
+_lib_sm90 = None
+
+
+def route(dtype, D: int) -> str:
+    """The kernel a CUDA call with this type and head dim launches:
+    ``"sm90"`` for bf16 with D in ``SM90_HEAD_DIMS``, else ``"simt"``."""
+    return "sm90" if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS \
+        else "simt"
 
 
 def build() -> ctypes.CDLL:
@@ -50,6 +75,20 @@ def build() -> ctypes.CDLL:
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
+    return lib
+
+
+def build_sm90() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the tensor-core kernel."""
+    global _lib_sm90
+    if _lib_sm90 is not None:
+        return _lib_sm90
+    lib = _build.load("flash_attention_sm90", extra_flags=("-lcuda",))
+    fn = lib.flash_attention_fwd_sm90
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib_sm90 = lib
     return lib
 
 
@@ -74,9 +113,10 @@ def flash_attention_folded(q, k, v, *, causal: bool = True, window: int = 0,
                            block_q: int = 128, block_k: int = 128):
     """q: (BK, S, G, D) pre-scaled by 1/sqrt(D); k, v: (BK, T, D).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  Returns (BK, S, G, D) in q's dtype."""
-    global launches
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    ``route(q.dtype, D)`` names, or raise.  Returns (BK, S, G, D) in q's
+    dtype."""
+    global launches, launches_sm90, launches_simt
     if q.dim() != 4 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"want q (BK,S,G,D), k = v (BK,T,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -112,15 +152,37 @@ def flash_attention_folded(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"shape too large for the kernel: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     out = torch.empty_like(q)
-    lib = build()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BK, S, T, G, D, int(causal), int(window),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_fwd failed to launch: CUDA "
-                           f"error {err}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route(q.dtype, D) == "sm90":
+        # TMA reads from 16-byte aligned addresses only
+        if any(x.data_ptr() % 16 for x in (q, k, v, out)):
+            raise ValueError("q, k, v must be 16-byte aligned")
+        lib = build_sm90()
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_fwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                BK, S, T, G, D, int(causal), int(window), stream)
+        if err:
+            raise RuntimeError(f"flash_attention_fwd_sm90 failed to launch: "
+                               f"{_describe(err)}")
+        launches_sm90 += 1
+    else:
+        lib = build()
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                BK, S, T, G, D, int(causal), int(window),
+                int(q.dtype == torch.bfloat16), stream)
+        if err:
+            raise RuntimeError(f"flash_attention_fwd failed to launch: "
+                               f"{_describe(err)}")
+        launches_simt += 1
     launches += 1
     return out
+
+
+def _describe(err: int) -> str:
+    """A kernel's non-zero return: a cudaError_t, or a negated CUresult
+    from encoding a tensor map."""
+    return f"CUDA error {err}" if err > 0 else \
+        f"tensor map encoding failed (CUresult {-err})"

@@ -5,13 +5,14 @@ The kernel (``csrc/rmsnorm.cu``) replaces the Pallas TPU kernel
 ``src/repro/kernels/rmsnorm.py:22`` ``rmsnorm`` (body ``_rmsnorm_kernel``):
 per row, the fp32 mean square, ``1/sqrt(var + eps)``, the cast to x's
 type and then ``* w``.  Where the TPU kernel normalises (block_rows, D)
-tiles, the CUDA kernel gives each row one block of 256 threads and reduces
-the square sum by warp shuffles.
+tiles, the CUDA kernel gives each row one warp: the TMA engine copies the
+row once into shared memory, the warp reduces the square sum by shuffles
+and writes with 16-byte stores; a row that is not 16-byte aligned takes a
+scalar path of the same kernel.
 
 What bounds it at the smoke shape (x (4096, 2560)): bytes, by the data
-sheet (a few operations per element).  The simple design reads x twice
-(once from the cache) with 2- or 4-byte loads.  Its time on an H100 beside
-that bound, and beside ``torch.nn.functional.rms_norm``, is in ``PERF.md``.
+sheet (a few operations per element).  Its time on an H100 beside that
+bound, and beside ``torch.nn.functional.rms_norm``, is in ``PERF.md``.
 
 No model calls it: the models use ``models/layers.rms_norm``, as the
 reference's models use the jnp ``rms_norm``.  Its entry point is

@@ -22,8 +22,8 @@ from repro_torch.kernels import ops, ref, variants
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # Registry tiles the port refuses though the reference admits them, with
-# the reason.  None: the CUDA kernel's tiling (64 rows x 32 keys) does not
-# depend on block_q/block_k, so every tile the reference admits launches.
+# the reason.  None: neither CUDA kernel's tiling depends on
+# block_q/block_k, so every tile the reference admits launches.
 REFUSED_TILES = {}
 
 
@@ -100,11 +100,34 @@ def test_oracle_matches_reference_oracle(window):
                                atol=2e-5)
 
 
-def test_plain_path_launches_nothing():
-    q, k, v = (torch.from_numpy(x) for x in _inputs(_shapes(1), seed=1))
-    before = fa.launches
+def _counts():
+    return fa.launches, fa.launches_sm90, fa.launches_simt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 64, 128, 256])
+def test_plain_path_launches_nothing(dtype, D):
+    """CPU tensors take the plain version on either route's dtype and
+    head dim: no counter moves."""
+    shapes = ((1, 64, 1, 2, D), (1, 64, 1, D), (1, 64, 1, D))
+    q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype))
+               for x in _inputs(shapes, seed=1))
+    before = _counts()
     ops.flash_attention(q, k, v)
-    assert fa.launches == before
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("D", [1, 8, 16, 32, 48, 64, 96, 128, 192, 256, 512])
+def test_route_by_dtype_and_head_dim(dtype, D):
+    """bf16 with D in {64, 128, 256} takes the tensor-core kernel; every
+    other case the SIMT one (which refuses what it is not built for)."""
+    want = "sm90" if dtype == torch.bfloat16 and D in (64, 128, 256) \
+        else "simt"
+    assert fa.route(dtype, D) == want
+    assert fa.SM90_HEAD_DIMS == (64, 128, 256)
+    assert set(fa.SM90_HEAD_DIMS) <= set(fa.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("bad", [
