@@ -14,9 +14,11 @@ Drives the port's main path through its public entry points and checks it:
    flash attention at qwen2.5-14b's attention width (q (1,4096,8,5,128),
    k and v (1,4096,8,128)), causal and window=1024, fp32 (the SIMT route)
    and bf16 (the sm90 tensor-core route), and at recurrentgemma-2b's
-   (q (1,4096,1,10,256), k and v (1,4096,1,256), bf16, window 2048), beside
-   scaled_dot_product_attention; wkv6 at rwkv6-3b's width (r, k, v, w
-   (1,4096,40,64), u (40,64)), fp32 and bf16 r/k/v/u; rglru_scan at
+   (q (1,4096,1,10,256), k and v (1,4096,1,256), bf16 and fp32, window
+   2048), beside scaled_dot_product_attention; wkv6 at rwkv6-3b's width
+   (r, k, v, w (1,4096,40,64), u (40,64)), fp32 and bf16 r/k/v/u, and
+   once more in fp32 with decays of exactly 0, 1e-30 and 1.0 among them;
+   rglru_scan at
    recurrentgemma-2b's width (a, b (1,4096,2560) fp32); rmsnorm on
    x (4096,2560), fp32 and bf16, beside torch.nn.functional.rms_norm.
    The PyTorch calls are yardsticks the port never calls;
@@ -292,8 +294,8 @@ def _flash_rows(peaks: dict, model: str, B: int, S: int, cases,
 
 def phase_kernel(peaks: dict) -> dict:
     """flash at qwen2.5-14b's attention width (fp32 and bf16, causal and
-    window 1024) and at recurrentgemma-2b's (bf16, window 2048, the
-    model's own).  Returns the kernels line's rows: the fp32 causal one
+    window 1024) and at recurrentgemma-2b's (bf16 and fp32, window 2048,
+    the model's own).  Returns the kernels line's rows: the fp32 causal one
     for the SIMT route, the bf16 causal qwen-width one for the sm90
     route."""
     import torch
@@ -303,10 +305,12 @@ def phase_kernel(peaks: dict) -> dict:
                            (torch.bfloat16, BF16_TOL))
         for window in (0, 1024)], seed=0)
     griffin = _flash_rows(peaks, "recurrentgemma-2b", 1, 4096,
-                          [(torch.bfloat16, BF16_TOL, 2048)], seed=5)
+                          [(torch.bfloat16, BF16_TOL, 2048),
+                           (torch.float32, FP32_TOL, 2048)], seed=5)
     check(qwen[("float32", 0)]["route"] == "simt"
           and qwen[("bfloat16", 0)]["route"] == "sm90"
-          and griffin[("bfloat16", 2048)]["route"] == "sm90",
+          and griffin[("bfloat16", 2048)]["route"] == "sm90"
+          and griffin[("float32", 2048)]["route"] == "simt",
           "flash routes: want fp32 on simt, bf16 at D = 128 and 256 on sm90")
     return {"flash_attention": qwen[("float32", 0)],
             "flash_attention_sm90": qwen[("bfloat16", 0)]}
@@ -386,6 +390,29 @@ def phase_wkv6_kernel(peaks: dict) -> dict:
             main = row
         del r, k, v, w, u, folded, want_o, want_s, o, s
         torch.cuda.empty_cache()
+    # the same width with extreme decays (10% exactly 0, 10% 1e-30, 20%
+    # 1.0), where a chunked form that subtracts prefix sums of log w
+    # loses digits: the kernel against the sequential plain version
+    w = host[3].copy()
+    pick = rng.uniform(size=w.shape)
+    w[pick < 0.1] = 0.0
+    w[(pick >= 0.1) & (pick < 0.2)] = 1e-30
+    w[(pick >= 0.2) & (pick < 0.4)] = 1.0
+    folded = [fold(torch.from_numpy(x).cuda())
+              for x in (*host[:3], w)] + [torch.from_numpy(host[4]).cuda()]
+    want_o, want_s = wk.wkv6_plain(*folded)
+    o, s = wk.wkv6_folded(*folded)
+    torch.cuda.synchronize()
+    errs = []
+    for got, want in ((o, want_o), (s, want_s)):
+        err, ok = _close(got, want, WKV6_TOL)
+        check(ok, f"wkv6 kernel vs plain, extreme decays: max abs err {err} "
+              f"beyond {WKV6_TOL} x (1 + |want|)")
+        errs.append(err)
+    report("kernel_vs_plain", kernel="wkv6", r=[B, T, H, hs], u=[H, hs],
+           dtype="float32", decays="0 / 1e-30 / 1.0 among uniform(0.2, "
+           "0.99)", tol=WKV6_TOL, max_abs_err=max(errs))
+    main["max_abs_err"] = max(main["max_abs_err"], max(errs))
     return main
 
 

@@ -1,9 +1,13 @@
-// Causal / sliding-window GQA flash attention forward for Hopper (sm_90a).
+// Causal / sliding-window GQA flash attention forward for Hopper (sm_90a),
+// fp32 on the CUDA cores (route "simt").
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_folded
 // (Pallas TPU kernel, body _flash_kernel) and computes what it computes:
 // online softmax over key chunks, masked scores set to -1e30, output
 // divided by max(l, 1e-30), all math in fp32 whatever the input type.
+// The wrapper sends fp32 at every head dim and bf16 with D < 64 here
+// (bf16 at D >= 64 takes the tensor-core kernel, flash_attention_sm90.cu);
+// TF32 tensor cores would keep too few digits for the 2e-5 tolerance.
 //
 // Layouts (folded by repro_torch/kernels/ops.py): q (BK, S, G, D), already
 // scaled by 1/sqrt(D); k, v (BK, T, D); o (BK, S, G, D) in q's type.  For
@@ -11,69 +15,122 @@
 // query position r / G, so the G group rides inside a row tile and every
 // K/V chunk is staged once for all the group's heads, as on the TPU.
 //
-// What bounds it: at the attention width it serves (D = 128, S = T = 4096,
-// fp32) it does ~860 FLOP per byte it must move, far above the H100's fp32
-// ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B), so it is bound by
-// operations: fp32 FMAs on the CUDA cores (fp32 in, fp32 accumulators, as
-// the reference; no tensor cores).  The design keeps the FMA pipe fed:
-//   * a block of 128 threads owns BR = 64 rows; each thread owns a 4x4
-//     register tile of scores (4 rows x 4 keys) and 4 rows x D/8 columns
-//     of the accumulator, so each float4 read of shared memory feeds
-//     4 FMAs (scores) and each scalar read of V feeds 4 FMAs (output);
-//   * q is staged once per block and K/V in chunks of BC = 32 keys, all
-//     converted to fp32 in shared memory (73.7 KB at D = 128), so the
-//     TPU's whole (block_q x G x D) VMEM accumulator (655 KB at qwen
-//     width, block_q = 256) is never needed: the accumulator stays in
-//     registers and the chunk size does not depend on block_k;
+// What bounds it: at the attention widths it serves (D = 128 or 256,
+// S = T = 4096, fp32) it does hundreds of FLOPs per byte it must move,
+// far above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B),
+// so it is bound by fp32 FMAs.  The design keeps the FMA pipe fed:
+//   * a block of 256 threads (8 warps) owns BR = 64 rows and sweeps the
+//     keys in chunks of BC = 64.  S = Q.K^T gives each thread a 4 x 4
+//     register tile (4 rows x 4 keys): per 4 steps of d it reads 4 float4
+//     of Q and 4 of K for 64 FMAs.  O += P.V gives each thread 4 rows x
+//     D/16 columns (D >= 64): per key one float4 of P and D/64 float4 of V
+//     for 16 x D/64 FMAs.  Every shared-memory read feeds >= 8 FMAs;
+//   * Q, K and V are staged in shared memory by 16-byte cp.async in their
+//     row-major layout; K's float4 columns are XOR-swizzled by key % 8 (and
+//     P's by key % 8) so the 4 x 4 tiles read and write without bank
+//     conflicts.  K and V take turns in two slots: V_j loads while
+//     S_j = Q.K_j^T runs, K_{j+1} loads while O += P_j.V_j runs, with two
+//     barriers per 64-key chunk;
+//   * Q, one K chunk, one V chunk and P fill 112.5 KB at D = 128 (two
+//     blocks, 16 warps per SM) and 208.5 KB at D = 256 (one block, 8
+//     warps per SM); the accumulator stays in registers, so the TPU's
+//     (block_q x G x D) VMEM accumulator is never needed and no tile
+//     depends on block_q / block_k;
+//   * only chunks that straddle the causal diagonal, the window's edge or
+//     the end of the keys run the mask, from query positions computed once
+//     per thread; interior chunks take no per-score test;
 //   * key chunks that the mask hides for every row of the block are
-//     skipped (about half the work under a causal mask).  This changes
-//     the result only by rounding: the reference runs such tiles with
+//     skipped (about half the work under a causal mask).  This changes the
+//     result only by rounding: the reference runs such tiles with
 //     p = exp(-1e30 - (-1e30)) = 1, but a later valid tile's
-//     corr = exp(-1e30 - m) = 0 wipes what they added, and every row
-//     keeps a valid key when causal (its diagonal).  Rows with no valid
-//     key at all (only possible when S > T + window) disable skipping;
-//   * row tiles are scheduled latest first: under a causal mask they
-//     sweep the most keys.
+//     corr = exp(-1e30 - m) = 0 wipes what they added, and every row keeps
+//     a valid key when causal (its diagonal).  Rows with no valid key at
+//     all (only possible when S > T + window) disable skipping;
+//   * row tiles are scheduled latest first: under a causal mask they sweep
+//     the most keys.
+// bf16 inputs (D < 64) are converted to fp32 as they are staged, by plain
+// loads (cp.async cannot convert); the products are the same.
 //
 // The kernel launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError() (the wrapper raises on non-zero).
+// returns cudaGetLastError() (the wrapper raises on non-zero).  q, k, v
+// and o are 16-byte aligned (the wrapper ensures it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kRowGroups = 16;                     // threads along rows
-constexpr int kColGroups = 8;                      // threads along keys / d
-constexpr int kThreads = kRowGroups * kColGroups;  // 128
-constexpr int TM = 4;                              // rows per thread
-constexpr int TN = 4;                              // keys per thread
-constexpr int BR = kRowGroups * TM;                // 64 rows per block
-constexpr int BC = kColGroups * TN;                // 32 keys per chunk
-constexpr float kNegInf = -1e30f;                  // the reference's NEG_INF
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+constexpr int kThreads = 256;
+constexpr int BR = 64;                   // rows per block
+constexpr int BC = 64;                   // keys per chunk
+constexpr int TM = 4;                    // score rows per thread
+constexpr int TN = 4;                    // score keys per thread
+constexpr int kKeyGroups = BC / TN;      // 16 adjacent lanes share a row
+constexpr float kNegInf = -1e30f;        // the reference's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
+static_assert((BR / TM) * kKeyGroups == kThreads, "score tiling");
+
+template <int D>
+struct Tile {
+  static constexpr int C4 = D / 4;                      // float4s a row
+  static constexpr int SW = (C4 < 8 ? C4 : 8) - 1;      // K swizzle mask
+  static constexpr int PCG = C4 < 16 ? C4 : 16;         // P.V column groups
+  static constexpr int NB4 = C4 / PCG;                  // float4s a thread
+  static constexpr int TMP =                            // P.V rows a thread
+      BR * PCG / kThreads > 0 ? BR * PCG / kThreads : 1;
+  static constexpr int PRG = BR / TMP;
+  static constexpr int PUSED = PRG * PCG;
+  // Q [BR][D], K [BC][D], V [BC][D], P [BC][BR], corr [BR], l [BR]
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)BR * D + 2 * BC * D + BC * BR + 2 * BR);
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
+  static_assert(PUSED <= kThreads && C4 % PCG == 0, "P.V tiling");
+};
+
+// four bf16 (8-byte aligned) as fp32
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const uint32_t*>(&a);
+  raw.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// the 16 lanes of a row group are adjacent (tid = row group * 16 + key group)
 __device__ __forceinline__ float group_max(float x) {
-  // the 8 threads of a row group are adjacent lanes (tid = rg * 8 + cg)
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+#pragma unroll
+  for (int m = 1; m < kKeyGroups; m <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, m));
   return x;
 }
 
 __device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
+#pragma unroll
+  for (int m = 1; m < kKeyGroups; m <<= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
 }
 
@@ -83,29 +140,51 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int T, int causal,
          (window <= 0 || qpos - kpos < window);
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // qT [D][BR], kT [D][BC], v [BC][D], pT [BC][BR], all fp32
-  return sizeof(float) * (size_t)(D * BR + D * BC + BC * D + BC * BR);
+// rows [r0, r0 + ROWS) of a (rows x D) matrix into shared memory as fp32,
+// float4 column c of row r at c ^ (r & SWZ); rows at or past `limit` are
+// zeros.  fp32 goes by cp.async (the caller commits and waits), bf16 by
+// plain loads converted on the way.
+template <typename Elem, int D, int ROWS, int SWZ>
+__device__ __forceinline__ void stage(float* dst, const Elem* src, int r0,
+                                      int limit, int tid) {
+  constexpr int C4 = D / 4;
+  for (int e = tid; e < ROWS * C4; e += kThreads) {
+    const int r = e / C4, c = e % C4;
+    float* d = dst + r * D + 4 * (c ^ (r & SWZ));
+    const bool in = r0 + r < limit;
+    const Elem* s = src + (size_t)(in ? r0 + r : 0) * D + 4 * c;
+    if constexpr (std::is_same<Elem, float>::value) {
+      cp_async16(d, s, in ? 16u : 0u);
+    } else {
+      *reinterpret_cast<float4*>(d) =
+          in ? load4(s) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
 }
 
 template <typename Elem, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Tile<D>::MIN_BLOCKS)
 flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                  const Elem* __restrict__ v, Elem* __restrict__ o, int S,
                  int T, int G, int causal, int window) {
-  static_assert(D % kColGroups == 0, "D must be a multiple of 8");
-  constexpr int DC = D / kColGroups;  // accumulator columns per thread
+  using Tl = Tile<D>;
+  constexpr int C4 = Tl::C4, SW = Tl::SW, PCG = Tl::PCG, NB4 = Tl::NB4,
+                TMP = Tl::TMP;
 
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  float* kT = qT + D * BR;
-  float* vs = kT + D * BC;
-  float* pT = vs + BC * D;
+  float* Qs = reinterpret_cast<float*>(smem4);  // [BR][D]
+  float* Ks = Qs + BR * D;                       // [BC][D], swizzled
+  float* Vs = Ks + BC * D;                       // [BC][D]
+  float* Ps = Vs + BC * D;                       // [BC][BR], swizzled
+  float* corr_s = Ps + BC * BR;                  // [BR]
+  float* l_s = corr_s + BR;                      // [BR]
+  const float4* Qs4 = reinterpret_cast<const float4*>(Qs);
+  const float4* Ks4 = reinterpret_cast<const float4*>(Ks);
+  const float4* Vs4 = reinterpret_cast<const float4*>(Vs);
+  float4* Ps4 = reinterpret_cast<float4*>(Ps);
 
   const int tid = threadIdx.x;
-  const int rg = tid / kColGroups;
-  const int cg = tid % kColGroups;
+  const int rg = tid / kKeyGroups, cg = tid % kKeyGroups;
   const int bk = blockIdx.y;
   const int n_rows = S * G;
   const int row0 = (gridDim.x - 1 - blockIdx.x) * BR;
@@ -114,12 +193,6 @@ flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const Elem* kb = k + (size_t)bk * T * D;
   const Elem* vb = v + (size_t)bk * T * D;
   Elem* ob = o + (size_t)bk * n_rows * D;
-
-  for (int idx = tid; idx < BR * D; idx += kThreads) {
-    const int r = idx % BR, d = idx / BR;
-    const int row = row0 + r;
-    qT[d * BR + r] = row < n_rows ? to_f32(qb[(size_t)row * D + d]) : 0.f;
-  }
 
   // key chunks to sweep: skip those the mask hides for every row
   const int last_row = min(row0 + BR, n_rows) - 1;
@@ -132,100 +205,169 @@ flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     if (window > 0) t_begin = max(0, qpos_lo - window + 1) / BC * BC;
   }
 
-  float m[TM], l[TM], acc[TM][DC];
+  stage<Elem, D, BR, 0>(Qs, qb, row0, n_rows, tid);
+  if (t_begin < t_end) stage<Elem, D, BC, SW>(Ks, kb, t_begin, T, tid);
+  cp_async_commit();
+
+  int qpos[TM];  // this thread's score rows' query positions
+#pragma unroll
+  for (int i = 0; i < TM; ++i) qpos[i] = (row0 + TM * rg + i) / G;
+  float m[TM], lp[TM];  // running max; this thread's part of the row sum
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    lp[i] = 0.f;
   }
+  const int prg = tid / PCG, pq = tid % PCG;  // P.V: rows and columns
+  float acc[TMP][NB4][4];
+#pragma unroll
+  for (int a = 0; a < TMP; ++a)
+#pragma unroll
+    for (int b = 0; b < NB4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  cp_async_wait<0>();
+  __syncthreads();
 
   for (int t0 = t_begin; t0 < t_end; t0 += BC) {
-    __syncthreads();  // the previous chunk's reads of kT / vs / pT are done
-    for (int idx = tid; idx < BC * D; idx += kThreads) {
-      const int j = idx % BC, d = idx / BC;
-      const int t = t0 + j;
-      kT[d * BC + j] = t < T ? to_f32(kb[(size_t)t * D + d]) : 0.f;
-    }
-    for (int idx = tid; idx < BC * D; idx += kThreads) {
-      const int j = idx / D, d = idx % D;
-      const int t = t0 + j;
-      vs[j * D + d] = t < T ? to_f32(vb[(size_t)t * D + d]) : 0.f;
-    }
-    __syncthreads();
+    stage<Elem, D, BC, 0>(Vs, vb, t0, T, tid);  // lands during S = Q.K^T
+    cp_async_commit();
 
-    // scores: s = q . k for 4 rows x 4 keys
     float s[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+    const int kc = cg & SW;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qT[d * BR + rg * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&kT[d * BC + cg * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
+    for (int c = 0; c < C4; ++c) {
+      float4 a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = Qs4[(TM * rg + i) * C4 + c];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        b[j] = Ks4[(cg + kKeyGroups * j) * C4 + (c ^ kc)];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
     }
 
-    // mask + online softmax, row statistics shared by the row group
+    // the mask, only where the chunk crosses the diagonal, the window's
+    // edge or the end of the keys
+    const bool edge = (causal && t0 + BC - 1 > qpos_lo) ||
+                      (window > 0 && qpos_hi - t0 >= window) ||
+                      t0 + BC > T;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if (!visible(qpos[i], t0 + cg + kKeyGroups * j, T, causal, window))
+            s[i][j] = kNegInf;
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int qpos = (row0 + rg * TM + i) / G;
-      float mx = kNegInf;
+      float mx = s[i][0];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        if (!visible(qpos, t0 + cg * TN + j, T, causal, window))
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int j = 1; j < TN; ++j) mx = fmaxf(mx, s[i][j]);
       const float m_new = fmaxf(m[i], group_max(mx));
+      // exp(x) as 2^(x log2 e), x = s - m formed first: its rounding is
+      // relative to |s - m|, so the weights near the maximum stay exact
+      // (scaling s alone first would err by |s| 2^-24 on every score)
+      const float corr = exp2f((m[i] - m_new) * kLog2e);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         // keys past T are padding, not masked keys: they weigh nothing
-        s[i][j] = t0 + cg * TN + j < T ? expf(s[i][j] - m_new) : 0.f;
+        s[i][j] = edge && t0 + cg + kKeyGroups * j >= T
+                      ? 0.f
+                      : exp2f((s[i][j] - m_new) * kLog2e);
         rs += s[i][j];
       }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + group_sum(rs);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+      lp[i] = lp[i] * corr + rs;
       m[i] = m_new;
+      if (cg == 0) corr_s[TM * rg + i] = corr;
     }
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      *reinterpret_cast<float4*>(&pT[(cg * TN + j) * BR + rg * TM]) =
+    for (int j = 0; j < TN; ++j) {
+      const int key = cg + kKeyGroups * j;
+      Ps4[key * (BR / 4) + (rg ^ (key & 7))] =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // P, corr and V_j visible; K_j's reads are done
 
-    // acc += p . v over the chunk
-#pragma unroll 4
-    for (int j = 0; j < BC; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&pT[j * BR + rg * TM]);
-      const float pv[TM] = {p4.x, p4.y, p4.z, p4.w};
+    if (t0 + BC < t_end)  // lands during O += P.V
+      stage<Elem, D, BC, SW>(Ks, kb, t0 + BC, T, tid);
+    cp_async_commit();
+
+    if (tid < Tl::PUSED) {
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = vs[j * D + c * kColGroups + cg];
+      for (int a = 0; a < TMP; ++a) {
+        const float cr = corr_s[TMP * prg + a];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int b = 0; b < NB4; ++b)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][b][c] *= cr;
+      }
+#pragma unroll 8
+      for (int j = 0; j < BC; ++j) {
+        float pv[TMP];
+        if constexpr (TMP == 4) {
+          const float4 p4 = Ps4[j * (BR / 4) + (prg ^ (j & 7))];
+          pv[0] = p4.x;
+          pv[1] = p4.y;
+          pv[2] = p4.z;
+          pv[3] = p4.w;
+        } else {
+#pragma unroll
+          for (int a = 0; a < TMP; ++a) {
+            const int row = TMP * prg + a;
+            pv[a] = Ps[j * BR + 4 * ((row >> 2) ^ (j & 7)) + (row & 3)];
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < NB4; ++b) {
+          const float4 vv = Vs4[j * C4 + pq + PCG * b];
+#pragma unroll
+          for (int a = 0; a < TMP; ++a) {
+            acc[a][b][0] = fmaf(pv[a], vv.x, acc[a][b][0]);
+            acc[a][b][1] = fmaf(pv[a], vv.y, acc[a][b][1]);
+            acc[a][b][2] = fmaf(pv[a], vv.z, acc[a][b][2]);
+            acc[a][b][3] = fmaf(pv[a], vv.w, acc[a][b][3]);
+          }
+        }
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // K_{j+1} visible; V_j's and P's reads are done
   }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int row = row0 + rg * TM + i;
-    if (row >= n_rows) continue;
-    const float lse = fmaxf(l[i], 1e-30f);
+    const float l = group_sum(lp[i]);
+    if (cg == 0) l_s[TM * rg + i] = l;
+  }
+  __syncthreads();
+  if (tid < Tl::PUSED) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      store(&ob[(size_t)row * D + c * kColGroups + cg], acc[i][c] / lse);
+    for (int a = 0; a < TMP; ++a) {
+      const int row = row0 + TMP * prg + a;
+      if (row >= n_rows) continue;
+      const float lse = fmaxf(l_s[TMP * prg + a], 1e-30f);
+#pragma unroll
+      for (int b = 0; b < NB4; ++b)
+        store4(ob + (size_t)row * D + 4 * (pq + PCG * b),
+               make_float4(acc[a][b][0] / lse, acc[a][b][1] / lse,
+                           acc[a][b][2] / lse, acc[a][b][3] / lse));
+    }
   }
 }
 
@@ -234,9 +376,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int BK, int S, int T, int G, int causal, int window,
                    cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<Elem, D>;
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Tile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // all of the SM's unified memory as shared memory, so two blocks of
+  // 112.5 KB fit at D = 128
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((S * G + BR - 1) / BR, BK);
   kernel<<<grid, kThreads, smem, stream>>>(

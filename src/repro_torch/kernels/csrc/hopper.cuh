@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile and bulk loads, register reallocation and warpgroup matrix
-// multiplies (wgmma), as inline PTX.  Each wrapper is one instruction or a
-// polling loop around one; the kernels own their layouts and pipelines.
+// TMA tile and bulk loads, cp.async copies, register reallocation and
+// warpgroup matrix multiplies (wgmma), as inline PTX.  Each wrapper is one
+// instruction or a polling loop around one; the kernels own their layouts
+// and pipelines.
 //
 // Shared-memory operands of wgmma are described by a 64-bit matrix
 // descriptor.  Every operand here is stored as TMA writes it with
@@ -107,6 +108,30 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// --- cp.async: per-thread asynchronous copies ----------------------------
+
+// copy 16 bytes (both addresses 16-byte aligned) from global to shared
+// memory, bypassing L1; `bytes` < 16 reads only that many and fills the
+// rest with zeros (0: a zero row past the end of a tensor)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// close the group of this thread's copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- wgmma ---------------------------------------------------------------

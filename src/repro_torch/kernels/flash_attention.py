@@ -10,9 +10,10 @@ head dim alone:
   ``SM90_HEAD_DIMS``, on the tensor cores (TMA loads, wgmma products in
   fp32, the softmax weights rounded to bf16 before P.V);
 - ``"simt"`` (``csrc/flash_attention.cu``): every other case (fp32, and
-  bf16 with D < 64), fp32 FMAs on the CUDA cores.  fp32 stays there: TF32
-  tensor cores keep about three decimal digits, too few for the 2e-5
-  tolerance of the reference's sweep.
+  bf16 with D < 64), fp32 FMAs on the CUDA cores, register-tiled with
+  16-byte ``cp.async`` staging of K and V in 64-key chunks.  fp32 stays
+  there: TF32 tensor cores keep about three decimal digits, too few for
+  the 2e-5 tolerance of the reference's sweep.
 
 This is a dispatch by shape, not a fallback: a build or launch failure on
 either route raises.  Both are bound by operations on an H100; each source
@@ -167,6 +168,9 @@ def flash_attention_folded(q, k, v, *, causal: bool = True, window: int = 0,
                                f"{_describe(err)}")
         launches_sm90 += 1
     else:
+        # the kernel stages 16-byte pieces: a view that starts off that
+        # alignment is copied into a fresh (aligned) allocation
+        q, k, v = (x.clone() if x.data_ptr() % 16 else x for x in (q, k, v))
         lib = build()
         with torch.cuda.device(q.device):
             err = lib.flash_attention_fwd(

@@ -69,6 +69,37 @@ def test_cuda_kernel_matches_plain(cuda, D, dtype, window):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+_SIMT_CASES = [("float32", D) for D in fa.HEAD_DIMS] + \
+    [("bfloat16", D) for D in fa.HEAD_DIMS if D < 64]
+
+
+@pytest.mark.parametrize("dtype,D", _SIMT_CASES)
+@pytest.mark.parametrize("G", [1, 5, 10])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("window", [0, 8, 64])
+def test_cuda_simt_tile_edges(cuda, dtype, D, G, S, window):
+    """The SIMT route around its tile edges: 64 rows of (S, G) a block, 64
+    keys a chunk, so S = 63, 64, 65 end just before, on and after a key
+    chunk, and S * G ragged row tiles; windows that end inside a chunk."""
+    rng = np.random.default_rng(D * 1000 + G * 10 + S + window)
+    BK = 2
+    q = _normal((BK, S, G, D), rng) / D ** 0.5
+    k, v = _normal((BK, S, D), rng), _normal((BK, S, D), rng)
+    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+               for x in (q, k, v))
+    assert fa.route(q.dtype, D) == "simt"
+    before = (fa.launches_sm90, fa.launches_simt)
+    got = fa.flash_attention_folded(q, k, v, causal=True, window=window,
+                                    block_q=S, block_k=S)
+    torch.cuda.synchronize()
+    assert (fa.launches_sm90, fa.launches_simt) == (before[0],
+                                                    before[1] + 1)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
 @pytest.mark.parametrize("G", [1, 5, 10])
 @pytest.mark.parametrize("S", [96, 100, 256])
@@ -120,6 +151,69 @@ def test_cuda_wkv6_matches_plain(cuda, hs, dtype):
     np.testing.assert_allclose(s.reshape(B * H, hs, hs).cpu().numpy(),
                                want_s.cpu().numpy(), rtol=WKV6_TOL,
                                atol=WKV6_TOL)
+
+
+@pytest.mark.parametrize("hs", wk.HEAD_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 15, 65, 100, 129])
+def test_cuda_wkv6_extreme_decays_ragged(cuda, hs, dtype, T):
+    """Decays of exactly 0, 1e-30 and 1.0 among moderate ones, on T that
+    end inside a chunk (64) and a sub-chunk (16) of the kernel."""
+    rng = np.random.default_rng(T * 1000 + hs)
+    BH = 3
+    r, k, v = (_normal((BH, T, hs), rng) for _ in range(3))
+    w = rng.uniform(0.2, 0.99, (BH, T, hs)).astype(np.float32)
+    pick = rng.uniform(size=w.shape)
+    w[pick < 0.1] = 0.0
+    w[(pick >= 0.1) & (pick < 0.2)] = 1e-30
+    w[(pick >= 0.2) & (pick < 0.4)] = 1.0
+    u = _normal((BH, hs), rng)
+    tdt = getattr(torch, dtype)
+    r, k, v, u = (torch.from_numpy(x).to(cuda, tdt) for x in (r, k, v, u))
+    w = torch.from_numpy(w).to(cuda)
+    before = wk.launches
+    o, s = wk.wkv6_folded(r, k, v, w, u, block_t=T)
+    torch.cuda.synchronize()
+    assert wk.launches == before + 1
+    want_o, want_s = wk.wkv6_plain(r, k, v, w, u)
+    for got, want in ((o, want_o), (s, want_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=WKV6_TOL, atol=WKV6_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_misaligned_views(cuda, dtype):
+    """Contiguous views that start off a 16-byte boundary: wkv6 and flash's
+    SIMT route stage 16-byte pieces, so their wrappers copy such inputs
+    into aligned storage first."""
+    rng = np.random.default_rng(7)
+    tdt = getattr(torch, dtype)
+
+    def view(x, dt):
+        """x as a contiguous CUDA view one element past its storage's start"""
+        flat = np.concatenate([[0.0], x.ravel()]).astype(np.float32)
+        out = torch.from_numpy(flat).to(cuda, dt)[1:].view(x.shape)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+
+    BH, T, hs = 3, 70, 16
+    r, k, v = (view(_normal((BH, T, hs), rng), tdt) for _ in range(3))
+    w = view(rng.uniform(0.2, 0.99, (BH, T, hs)), torch.float32)
+    u = view(_normal((BH, hs), rng), tdt)
+    o, s = wk.wkv6_folded(r, k, v, w, u, block_t=T)
+    want_o, want_s = wk.wkv6_plain(r, k, v, w, u)
+    for got, want in ((o, want_o), (s, want_s)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=WKV6_TOL, atol=WKV6_TOL)
+    D = 32
+    q = view(_normal((2, 40, 5, D), rng) / D ** 0.5, tdt)
+    kk, vv = (view(_normal((2, 40, D), rng), tdt) for _ in range(2))
+    got = fa.flash_attention_folded(q, kk, vv, causal=True, window=8,
+                                    block_q=40, block_k=40)
+    want = fa.flash_attention_plain(q, kk, vv, causal=True, window=8)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("shape", [(1, 37, 5), (2, 256, 2560), (3, 17, 33)])
