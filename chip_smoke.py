@@ -19,7 +19,9 @@ Drives the port's main path through its public entry points and checks it:
    (r, k, v, w (1,4096,40,64), u (40,64)), fp32 and bf16 r/k/v/u, and
    once more in fp32 with decays of exactly 0, 1e-30 and 1.0 among them;
    rglru_scan at
-   recurrentgemma-2b's width (a, b (1,4096,2560) fp32); rmsnorm on
+   recurrentgemma-2b's width (a, b (1,4096,2560) fp32), once more with
+   exact zeros, 1e-30 and 1.0 among the decays, at (2,16384,512) for a
+   deep look-back, with its (Tc, Dc) tile reported; rmsnorm on
    x (4096,2560), fp32 and bf16, beside torch.nn.functional.rms_norm.
    The PyTorch calls are yardsticks the port never calls;
 4. polybench: the ten problems at their default sizes, optimized and naive
@@ -37,7 +39,8 @@ Drives the port's main path through its public entry points and checks it:
    (b) bf16 at full depth (32 and 26 layers) with kernels, timed with CUDA
    events, and one forward under torch.profiler for the device's busy
    time and its largest kernels (which must show the sm90 flash kernel
-   once per attention layer and the SIMT one never);
+   once per attention layer and the SIMT one never, and rglru_scan's
+   kernel once per recurrent layer);
 7. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
    activations, fp32 and bf16, with its launch count read around it (no
    model calls rmsnorm, as in the reference).
@@ -417,7 +420,10 @@ def phase_wkv6_kernel(peaks: dict) -> dict:
 
 
 def phase_rglru_kernel(peaks: dict) -> dict:
-    """rglru_scan at recurrentgemma-2b width: a, b (1, 4096, 2560) fp32."""
+    """rglru_scan at recurrentgemma-2b width: a, b (1, 4096, 2560) fp32, on
+    every registry tile, once more at the extreme mix of a (exact 0, 1e-30
+    and 1.0 among uniform(0.4, 0.999)), and at (2, 16384, 512), 16384 /
+    Tc chunks a row, for a deep look-back."""
     import numpy as np
     import torch
 
@@ -428,27 +434,45 @@ def phase_rglru_kernel(peaks: dict) -> dict:
     cfg = get_config("recurrentgemma-2b")
     B, T, D = 1, 4096, cfg.d_model
     rng = np.random.default_rng(2)
-    a = torch.from_numpy(rng.uniform(0.4, 0.999, (B, T, D))
-                         .astype(np.float32)).cuda()
-    b = torch.from_numpy(rng.standard_normal((B, T, D))
-                         .astype(np.float32)).cuda()
+
+    def inputs(shape, extreme=False):
+        a = rng.uniform(0.4, 0.999, shape).astype(np.float32)
+        if extreme:
+            pick = rng.uniform(size=shape)
+            a[pick < 0.1] = 0.0
+            a[(pick >= 0.1) & (pick < 0.2)] = 1e-30
+            a[(pick >= 0.2) & (pick < 0.4)] = 1.0
+        b = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+
+    def checked(what, got, want):
+        torch.cuda.synchronize()
+        err, ok = _close(got, want, RGLRU_TOL)
+        check(ok, f"rglru_scan kernel vs plain {what}: max abs err {err} "
+              f"beyond {RGLRU_TOL} x (1 + |want|)")
+        return err
+
+    a, b = inputs((B, T, D))
     tiles = variants.variants_for("rglru_scan", [a.shape, b.shape])
     check(len(tiles) == 3, f"want all 3 registry tiles, got {len(tiles)}")
     want = rg.rglru_scan_plain(a, b)
-    errs = []
-    for tile in tiles:
-        got = ops.rglru_scan(a, b, **tile.kwargs())
-        torch.cuda.synchronize()
-        err, ok = _close(got, want, RGLRU_TOL)
-        check(ok, f"rglru_scan kernel vs plain {tile.label}: max abs err "
-              f"{err} beyond {RGLRU_TOL} x (1 + |want|)")
+    errs = [checked(tile.label, ops.rglru_scan(a, b, **tile.kwargs()), want)
+            for tile in tiles]
+    for shape, extreme, what in (((B, T, D), True, "extreme mix"),
+                                 ((2, 16384, 512), False, "deep look-back")):
+        x, y = inputs(shape, extreme)
+        err = checked(what, rg.rglru_scan(x, y), rg.rglru_scan_plain(x, y))
+        report("kernel_vs_plain", kernel="rglru_scan", a=list(shape),
+               case=what, tol=RGLRU_TOL, max_abs_err=err)
         errs.append(err)
-    kernel_ms = time_ms(lambda: rg.rglru_scan(a, b))
-    plain_ms = time_ms(lambda: rg.rglru_scan_plain(a, b), reps=3, warm=1)
+        del x, y
     flops, nbytes = 2.0 * B * T * D, 12.0 * B * T * D
     bound_ms, bound_by = _bound_ms(flops, nbytes, peaks["fp32"], peaks)
+    kernel_ms = time_ms(lambda: rg.rglru_scan(a, b))
+    plain_ms = time_ms(lambda: rg.rglru_scan_plain(a, b), reps=3, warm=1)
     row = {"dtype": "float32", "tol": RGLRU_TOL, "max_abs_err": max(errs),
-           "tiles": len(tiles), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "tiles": len(tiles), "chunk": rg.CHUNK, "dtile": rg.DTILE,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
            "flops": flops, "bytes": nbytes}
     report("kernel_vs_plain", kernel="rglru_scan", a=[B, T, D], **row)
@@ -748,6 +772,13 @@ def phase_model_forward(name: str, cut_layers: int, reps: int = 3) -> dict:
                                         "flash_fwd_kernel": 0},
           f"{name} bf16 profile: flash kernels {seen}, want {n_attn} sm90 "
           "and no SIMT launch")
+    # ... and its rglru_scan kernels: one launch per recurrent layer
+    n_rglru = full.layer_kinds().count("rglru")
+    rglru = [r for r in rows or () if "rglru_scan_kernel<" in r[0]]
+    rglru_seen = sum(r[2] for r in rglru)
+    check(rows is not None and rglru_seen == n_rglru,
+          f"{name} bf16 profile: {rglru_seen} rglru_scan launches, want "
+          f"{n_rglru}")
     loss_b = float(loss_b)
     check(math.isfinite(loss_b), f"{name} bf16 loss is {loss_b}")
     wall_ms = sorted(times)[len(times) // 2]
@@ -760,6 +791,8 @@ def phase_model_forward(name: str, cut_layers: int, reps: int = 3) -> dict:
            profiled_flash_launches=seen,
            profiled_flash_ms={k: sum(r[1] for r in rs)
                               for k, rs in flash.items()},
+           profiled_rglru_launches=rglru_seen,
+           profiled_rglru_ms=sum(r[1] for r in rglru),
            device_busy_ms=busy_ms,
            device_busy_share=None if busy_ms is None else busy_ms / wall_ms,
            top_device_ms=None if rows is None else rows[:8])

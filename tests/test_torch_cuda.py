@@ -231,6 +231,102 @@ def test_cuda_rglru_scan_matches_plain(cuda, shape):
                                rtol=RGLRU_TOL, atol=RGLRU_TOL)
 
 
+def _rglru_inputs(shape, seed, device, mix="uniform"):
+    """a uniform(0.4, 0.999), or the extreme mix: 10% exact 0.0, 10% 1e-30,
+    20% exact 1.0 among them; b standard normal."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.4, 0.999, shape).astype(np.float32)
+    if mix == "extreme":
+        pick = rng.uniform(size=shape)
+        a[pick < 0.1] = 0.0
+        a[(pick >= 0.1) & (pick < 0.2)] = 1e-30
+        a[(pick >= 0.2) & (pick < 0.4)] = 1.0
+    return (torch.from_numpy(a).to(device),
+            torch.from_numpy(_normal(shape, rng)).to(device))
+
+
+def _check_rglru(got, a, b):
+    want = rg.rglru_scan_plain(a, b)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RGLRU_TOL, atol=RGLRU_TOL)
+
+
+@pytest.mark.parametrize("shape,mix", [
+    ((1, 4096, 2560), "extreme"),   # recurrentgemma-2b width
+    ((2, 16384, 512), "uniform"),   # 16384 / CHUNK chunks a row: deep
+                                    # look-back
+    ((1, 4099, 2560), "uniform"),   # a ragged last chunk
+    ((1, 300, 2562), "extreme"),    # D % 4 != 0: the scalar path
+])
+def test_cuda_rglru_scan_at_width(cuda, shape, mix):
+    a, b = _rglru_inputs(shape, seed=shape[1], device=cuda, mix=mix)
+    before = rg.launches
+    got = rg.rglru_scan(a, b, block_t=shape[1])
+    torch.cuda.synchronize()
+    assert rg.launches == before + 1
+    _check_rglru(got, a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 301, 1032), (3, 77, 1030),
+                                   (1, 5, 8)])
+def test_cuda_rglru_scan_ragged(cuda, shape):
+    """Ragged in T and in D at the extreme mix: D = 1032 leaves a short
+    last channel tile on the vector path, D = 1030 takes the scalar path,
+    and (1, 5, 8) is one tile for many blocks."""
+    a, b = _rglru_inputs(shape, seed=sum(shape), device=cuda, mix="extreme")
+    before = rg.launches
+    got = rg.rglru_scan(a, b, block_t=shape[1])
+    torch.cuda.synchronize()
+    assert rg.launches == before + 1
+    _check_rglru(got, a, b)
+
+
+def test_cuda_rglru_scan_misaligned(cuda):
+    """Contiguous views that start off a 16-byte boundary take the scalar
+    path."""
+    B, T, D = 1, 200, 2560
+    a, b = _rglru_inputs((B * T * D + 1,), seed=3, device=cuda)
+    a, b = a[1:].view(B, T, D), b[1:].view(B, T, D)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _check_rglru(rg.rglru_scan(a, b, block_t=T), a, b)
+
+
+def test_cuda_rglru_scan_back_to_back(cuda):
+    """Three calls on one stream with no sync between: each call has its
+    own flags and ticket, so none sees another's."""
+    shape = (1, 4096, 2560)
+    inputs = [_rglru_inputs(shape, seed=s, device=cuda,
+                            mix="extreme" if s % 2 else "uniform")
+              for s in range(3)]
+    before = rg.launches
+    outs = [rg.rglru_scan(a, b) for a, b in inputs]
+    torch.cuda.synchronize()
+    assert rg.launches == before + 3
+    for got, (a, b) in zip(outs, inputs):
+        _check_rglru(got, a, b)
+
+
+def test_cuda_rglru_scan_two_streams(cuda):
+    """Two calls on two streams at once."""
+    shape = (2, 4096, 2560)
+    inputs = [_rglru_inputs(shape, seed=10 + s, device=cuda)
+              for s in range(2)]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    main = torch.cuda.current_stream()
+    before = rg.launches
+    outs = []
+    for st, (a, b) in zip(streams, inputs):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            outs.append(rg.rglru_scan(a, b))
+    for st in streams:
+        main.wait_stream(st)
+    torch.cuda.synchronize()
+    assert rg.launches == before + 2
+    for got, (a, b) in zip(outs, inputs):
+        _check_rglru(got, a, b)
+
+
 @pytest.mark.parametrize("shape", [(8, 32), (64, 2560), (5, 7000),
                                    (4096, 2560), (5, 7001)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
