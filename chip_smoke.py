@@ -43,10 +43,24 @@ Drives the port's main path through its public entry points and checks it:
    kernel once per recurrent layer);
 7. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
    activations, fp32 and bf16, with its launch count read around it (no
-   model calls rmsnorm, as in the reference).
+   model calls rmsnorm, as in the reference);
+8. tuner: the plan-space tuner (``tune``, what ``plan(p, policy="auto")``
+   calls) on ``TorchDeviceBackend("cuda")`` with a fresh ``TuneCache``:
+   (a) 3mm at n = 2048 and (b) attn_step at qwen2.5-14b's attention width
+   (2 steps, fp32, flash's SIMT route) measured, each winner executed with
+   ``winner_exec_kwargs`` and held against the host oracle / the plain
+   loss, each tuned a second time to hit the cache; (c) the four gate
+   programs of ``benchmarks/port_check_tuning_baseline.py`` at its sizes,
+   unmeasured, against ``tests/golden/port_tuning_baseline.json``.  The
+   candidate and execution-class counts must equal the reference tuner's
+   (``TUNER_EXPECT``); flash's kernels do not read the tile, so classes
+   that differ only in it are measured once (the measured counts), every
+   measured kernel time (CUDA events) must lie in (0, wall time], flash
+   must launch (1 + reps) x 2 times per measured attn_step class, and
+   TF32 must be as the phase found it.
 
 Each kernel's ``launches`` in the kernels line sums the paths that ran it:
-attn_step and model_forward for flash's SIMT route (``flash_attention``),
+attn_step, model_forward and tuner for flash's SIMT route (``flash_attention``),
 model_forward for its sm90 route (``flash_attention_sm90``), wkv6 and
 rglru_scan, rmsnorm_path for rmsnorm; comparison launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
@@ -104,6 +118,31 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
 # model_forward's fp32 correctness run keeps this many layers (griffin:
 # 2 periods of (R, R, A) plus the 2-layer tail, so the tail path runs)
 MODEL_CUTS = {"rwkv6-3b": 4, "recurrentgemma-2b": 8}
+
+# the tuner phase's programs: candidates, kernel tile variants and the
+# execution classes left after dominance pruning, as the reference's tuner
+# gives them on its numpy backend (derived and held equal to the port's by
+# tests/test_torch_tuner.py::test_chip_tuner_constants_equal_reference).
+# attn_step at qwen width has 9 flash tiles (every registry tile divides
+# 4096), the gate's 128-token step 4
+TUNER_EXPECT = {
+    "table2_3mm_n2048": {"n_valid": 64, "n_kernel_variants": 1,
+                         "n_classes": 5, "n_measured": 5},
+    "attn_step_qwen": {"n_valid": 576, "n_kernel_variants": 9,
+                       "n_classes": 63, "n_measured": 7},
+    "gate_attn_step": {"n_valid": 256, "n_kernel_variants": 4,
+                       "n_classes": 28, "n_measured": 0},
+    "gate_fig4_advancedload": {"n_valid": 64, "n_kernel_variants": 1,
+                               "n_classes": 3, "n_measured": 0},
+    "gate_fig5_delegatestore": {"n_valid": 64, "n_kernel_variants": 1,
+                                "n_classes": 2, "n_measured": 0},
+    "gate_table2_3mm": {"n_valid": 64, "n_kernel_variants": 1,
+                        "n_classes": 5, "n_measured": 0},
+}
+TUNE_REPS = 2           # timed executes per measured class (after 1 warm)
+# attn_step's peak device bytes at its default shape (the walk of the
+# registry's worksets; tests/golden/tuning_baseline.json)
+ATTN_STEP_PEAK_BYTES = 61444.0
 
 # NVIDIA data-sheet peaks (dense): fp32 outside the tensor cores, bf16 in
 # them, and memory bandwidth, keyed by the name nvidia-smi reports
@@ -577,12 +616,10 @@ def phase_polybench() -> None:
 
 def phase_attn_step() -> dict:
     import numpy as np
-    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import execute, plan, verify_plan
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.optim import attention_step_program
 
     cfg = get_config("qwen2.5-14b")
@@ -612,11 +649,7 @@ def phase_attn_step() -> dict:
     check(s_i.transfer_counts() == s_c.transfer_counts(),
           "attn_step: transfer counts differ between modes")
 
-    o = fa.flash_attention_plain(*ops.fold_attention(
-        *(torch.from_numpy(prog.inputs[n]).cuda() for n in "qkv")),
-        causal=True)
-    g = torch.from_numpy(prog.inputs["gain"] * np.float32(1.001)).cuda()
-    want = ((o * o).sum().reshape(1) * g).cpu().numpy()
+    want = _attn_step_plain_loss(prog)
     rel = float(np.abs(loss_c - want).max() / np.abs(want).max())
     check(rel <= LOSS_RTOL, f"attn_step final_loss {loss_c} vs plain {want}:"
           f" rel err {rel} > {LOSS_RTOL}")
@@ -628,6 +661,24 @@ def phase_attn_step() -> dict:
            wall_ms_compiled=s_c.wall_time * 1e3,
            compile_ms=s_c.compile_time * 1e3, **s_i.transfer_counts())
     return launches
+
+
+def _attn_step_plain_loss(prog):
+    """attn_step's final_loss by the plain version on the card: the last
+    step's attention output, squared and summed, times the gain."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    o = fa.flash_attention_plain(*ops.fold_attention(
+        *(torch.from_numpy(prog.inputs[n]).cuda() for n in "qkv")),
+        causal=True)
+    g = torch.from_numpy(prog.inputs["gain"] * np.float32(1.001)).cuda()
+    want = ((o * o).sum().reshape(1) * g).cpu().numpy()
+    del o
+    torch.cuda.empty_cache()
+    return want
 
 
 def _counters() -> dict:
@@ -914,6 +965,172 @@ def phase_rmsnorm_path() -> int:
     return launches
 
 
+def _tune_checked(name: str, prog, be, tc, **kw):
+    """tune(prog) on ``be`` with cache ``tc``, checked against
+    TUNER_EXPECT[name]; returns the winner and the table's counts."""
+    from repro_torch.core import tune
+    pl = tune(prog, backend=be, cache=tc, **kw)
+    tuning = pl.meta["tuning"]
+    valid = [c for c in tuning["candidates"] if c["valid"]]
+    survivors = [c for c in valid if c["alias_of"] is None]
+    counts = {"n_valid": len(valid),
+              "n_kernel_variants": len({json.dumps(
+                  c["config"]["kernel_variants"]) for c in valid}),
+              "n_classes": len(survivors),
+              "n_measured": pl.meta["tuning_cache"]["measurements"]}
+    check(counts == TUNER_EXPECT[name],
+          f"tuner {name}: {counts}, want {TUNER_EXPECT[name]}")
+    check(pl.meta["verify"]["ok"], f"tuner {name}: the winner does not "
+          f"verify: {pl.meta['verify']}")
+    return pl, counts
+
+
+def _tuner_line(name: str, pl, counts: dict, seconds: float, **extra):
+    """One program's line: the choice, per-objective winners, the top 5
+    candidates by predicted cost, and the calibration's verdict."""
+    tuning = pl.meta["tuning"]
+    cal = tuning.get("calibration") or {}
+    top = sorted((c for c in tuning["candidates"] if c["valid"]),
+                 key=lambda c: c["rank"])[:5]
+    report("tuner", program=name, chosen=tuning["chosen"],
+           winners=tuning["winners"], **counts,
+           top5=[{"label": c["label"], "predicted_s": c["predicted_s"],
+                  "measured_s": c["measured_s"],
+                  "measured_kernel_s": c.get("measured_kernel_s")}
+                 for c in top],
+           rank_corr_before=cal.get("rank_corr_before"),
+           rank_corr_after=cal.get("rank_corr_after"),
+           calibration_accepted=cal.get("accepted"),
+           fitted=cal.get("fitted"),
+           seconds=seconds, **extra)
+
+
+def _check_measured(name: str, pl, be, tc, reps: int) -> None:
+    """Every measured row's kernel time in (0, wall time], and a second
+    tune answered from the cache: no measurement, the same table."""
+    from repro_torch.core import tune
+    tuning = pl.meta["tuning"]
+    rows = [c for c in tuning["candidates"]
+            if c["valid"] and c["alias_of"] is None]
+    ran = [c for c in rows if "measured_as" not in c]
+    check(pl.meta["tuning_cache"]["measurements"] == len(ran),
+          f"tuner {name}: {pl.meta['tuning_cache']['measurements']} "
+          f"measurements for {len(ran)} measured classes")
+    for c in rows:
+        check(0 < c["measured_kernel_s"] <= c["measured_s"],
+              f"tuner {name} {c['label']}: kernel {c['measured_kernel_s']} "
+              f"s outside (0, wall {c['measured_s']} s]")
+    again = tune(pl.program, backend=be, cache=tc, reps=reps)
+    info = again.meta["tuning_cache"]
+    check(info["hit"] and info["measurements"] == 0,
+          f"tuner {name}: second tune {info}, want a hit, 0 measurements")
+    check(json.dumps(again.meta["tuning"], sort_keys=True)
+          == json.dumps(tuning, sort_keys=True),
+          f"tuner {name}: the cached table differs from the measured one")
+
+
+def phase_tuner() -> int:
+    """The plan-space tuner on the card (see the module docstring, 8).
+    Returns flash's SIMT launches in the phase: the tuner's measurements
+    of attn_step and its winner's execute."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (TorchDeviceBackend, TuneCache, execute,
+                                  run_host_oracle, tune, winner_exec_kwargs)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim import attention_step_program
+    from repro_torch.polybench import build_3mm
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    import port_check_tuning_baseline as gate
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    t_phase = time.perf_counter()
+    be = TorchDeviceBackend("cuda")
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_tunecache-")
+    tc = TuneCache(cache_dir)
+    try:
+        # (a) 3mm at n = 2048, measured
+        t = time.perf_counter()
+        p3, _ = build_3mm(n=2048)
+        pl, counts = _tune_checked("table2_3mm_n2048", p3, be, tc,
+                                   reps=TUNE_REPS)
+        seconds = time.perf_counter() - t
+        _check_measured("table2_3mm_n2048", pl, be, tc, TUNE_REPS)
+        out, _ = execute(pl, **winner_exec_kwargs(pl, be))
+        oracle = run_host_oracle(p3)
+        err = float(np.abs(out["out"] - oracle["out"]).max()
+                    / np.abs(oracle["out"]).max())
+        check(err <= POLY_RTOL, f"tuner 3mm winner off the host oracle by "
+              f"{err} of its scale > {POLY_RTOL}")
+        _tuner_line("table2_3mm_n2048", pl, counts, seconds,
+                    normwise_err=err, tol=POLY_RTOL)
+
+        # (b) attn_step at qwen2.5-14b's attention width, measured
+        cfg = get_config("qwen2.5-14b")
+        shapes = (1, 4096, 4096, cfg.n_kv_heads,
+                  cfg.n_heads // cfg.n_kv_heads, cfg.d_head)
+        pa = attention_step_program(2, shapes=shapes)
+        t = time.perf_counter()
+        _set_launch_counts(dict.fromkeys(_counters(), 0))  # the run starts
+        pl, counts = _tune_checked("attn_step_qwen", pa, be, tc,
+                                   reps=TUNE_REPS)
+        tuned = fa.launches_simt
+        want = counts["n_measured"] * (1 + TUNE_REPS) * 2
+        check(tuned == want, f"tuner attn_step: {tuned} SIMT launches, "
+              f"want {want} ((1 + {TUNE_REPS}) x 2 steps a measured class)")
+        seconds = time.perf_counter() - t
+        out, _ = execute(pl, **winner_exec_kwargs(pl, be))
+        launches = _launch_counts()                        # ... and ends
+        check(launches["flash_attention"] == tuned + 2
+              and launches["flash_attention_sm90"] == 0,
+              f"tuner attn_step winner: launches {launches}")
+        _check_measured("attn_step_qwen", pl, be, tc, TUNE_REPS)
+        want = _attn_step_plain_loss(pa)
+        rel = float(np.abs(out["final_loss"] - want).max()
+                    / np.abs(want).max())
+        check(rel <= LOSS_RTOL, f"tuner attn_step winner loss "
+              f"{out['final_loss']} vs plain {want}: rel err {rel}")
+        _tuner_line("attn_step_qwen", pl, counts, seconds, shapes=shapes,
+                    rel_err=rel, tol=LOSS_RTOL,
+                    flash_launches=launches["flash_attention"])
+
+        # (c) the gate programs, unmeasured, against the port's golden
+        golden = json.loads(gate.PORT_BASELINE_PATH.read_text())["programs"]
+        for name, prog in sorted(gate.gate_programs().items()):
+            t = time.perf_counter()
+            pl, counts = _tune_checked(f"gate_{name}", prog, be, tc,
+                                       measure=False, use_calibration=False)
+            row = gate.baseline_row(pl)
+            for key in ("predicted_winner", "winners", "n_pareto"):
+                check(row[key] == golden[name][key],
+                      f"tuner gate {name}: {key} {row[key]}, golden "
+                      f"{golden[name][key]}")
+            if name == "attn_step":
+                check(row["peak_bytes"] == ATTN_STEP_PEAK_BYTES,
+                      f"tuner gate attn_step: peak_bytes "
+                      f"{row['peak_bytes']}, want {ATTN_STEP_PEAK_BYTES}")
+            _tuner_line(f"gate_{name}", pl, counts,
+                        time.perf_counter() - t,
+                        predicted_s=row["predicted_s"],
+                        energy_j=row["energy_j"],
+                        peak_bytes=row["peak_bytes"])
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    now = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    check(now == tf32, f"tuner: TF32 flags {tf32} became {now}")
+    report("tuner", program="all", seconds=time.perf_counter() - t_phase,
+           tf32=list(now))
+    return launches["flash_attention"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -932,6 +1149,7 @@ def main() -> int:
         for kernel, n in phase_model_forward(name, cut).items():
             launches[kernel] += n
     launches["rmsnorm"] = phase_rmsnorm_path()
+    launches["flash_attention"] += phase_tuner()
     for name in rows:
         check(launches[name] > 0, f"the main path never launched {name}")
     print(json.dumps({"kernels": [{

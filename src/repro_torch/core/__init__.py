@@ -17,6 +17,9 @@ Public API:
                        checker run at every plan boundary (hard error)
     plan_records     — a plan as plain records, and ``plan_from_records``
                        back (carries plans across packages)
+    tune             — the plan-space explorer (``plan(p, policy="auto")``)
+                       with its persistent cache (``TuneCache``)
+    DeviceResidency  — runtime residency tracker for the training substrates
 """
 from .analysis import ProgramAnalysis, ShapeDtype, analyze
 from .backend import (Backend, Event, NumpyHostBackend, TorchDeviceBackend,
@@ -31,6 +34,13 @@ from .ir import (AdvancedLoad, Block, BlockKind, Callsite, DelegateStore,
 from .passes import (Pass, Pipeline, PlanDraft, get_placement,
                      placement_names, register_placement)
 from .planner import naive_plan, plan, transfer_summary
+from .residency import (DeviceResidency, ResidencyStats,
+                        plan_peak_device_bytes)
+from .tunecache import (COST_MODEL_VERSION, TuneCache, backend_fingerprint,
+                        default_cache, device_class_key, program_fingerprint,
+                        tuning_fingerprint)
+from .tuner import (OBJECTIVES, PlanConfig, pareto_front, predict_cost, tune,
+                    winner_exec_kwargs)
 from .verify import (PlanVerificationError, VerifyReport, Violation,
                      verify_plan)
 
@@ -45,7 +55,13 @@ __all__ = [
     "Backend", "Event", "NumpyHostBackend", "TorchDeviceBackend",
     "get_backend", "register_backend",
     "emit", "plan_records", "plan_from_records",
+    "DeviceResidency", "ResidencyStats",
     "Pass", "Pipeline", "PlanDraft",
     "register_placement", "get_placement", "placement_names",
+    "PlanConfig", "predict_cost", "tune", "winner_exec_kwargs",
+    "OBJECTIVES", "pareto_front", "plan_peak_device_bytes",
+    "TuneCache", "COST_MODEL_VERSION", "default_cache",
+    "program_fingerprint", "backend_fingerprint", "tuning_fingerprint",
+    "device_class_key",
     "verify_plan", "VerifyReport", "Violation", "PlanVerificationError",
 ]

@@ -28,9 +28,17 @@ and calls ``record_stream`` so the caching allocator does not recycle
 the memory early.  Because every launch runs eagerly, in program order,
 on the one compute stream, compiled and interpreted execution issue the
 same kernels in the same order and their outputs are bitwise equal.
+
+The blocks are fp32 products, computed in full fp32 as the reference
+does: TF32 is turned off around each of the backend's own compute
+launches and the caller's setting restored after it, so building or
+running a backend changes no precision outside it.  Between
+``time_kernels()`` and ``kernel_seconds()`` those launches are timed on
+the card with CUDA events (``ExecStats.kernel_time``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -40,8 +48,8 @@ import torch
 from .dtypes import torch_dtype
 
 __all__ = [
-    "Backend", "Event", "NumpyHostBackend", "TorchDeviceBackend",
-    "get_backend", "register_backend",
+    "Backend", "Event", "NumpyHostBackend",
+    "TorchDeviceBackend", "get_backend", "register_backend",
 ]
 
 
@@ -78,6 +86,11 @@ class Backend:
     name: str = "abstract"
     n_streams: int = 2   # logical transfer streams (double-buffered)
     supports_donation: bool = False   # can ``donate=True`` change execution?
+    # can a kernel's tile choice (``kernel_variants``) change execution?
+    # True keeps every tile its own execution class, as the reference's
+    # backends do: the numpy backend's tuning tables are the parity
+    # baseline against the reference's
+    reads_kernel_tiles: bool = True
 
     def __init__(self) -> None:
         self._pending: Dict[int, List[Event]] = {}
@@ -196,6 +209,21 @@ class Backend:
                      donate_keys: Tuple[str, ...] = ()) -> Dict[str, Any]:
         raise NotImplementedError
 
+    def time_kernels(self) -> None:
+        """Start timing this backend's compute launches on the device; a
+        no-op where the executor's host clock is the kernel time (every
+        backend here but a ``TorchDeviceBackend`` on CUDA)."""
+
+    def kernel_seconds(self) -> Optional[float]:
+        """Stop timing: the device seconds of the compute launches since
+        ``time_kernels()``, or None where the host clock is the kernel
+        time."""
+        return None
+
+    def finish(self) -> None:
+        """Wait until every launch issued so far has completed (the end
+        of an execution).  Host backends run synchronously."""
+
     def loop_in_body(self, body_fn: Callable[[Dict[str, Any]],
                                              Dict[str, Any]],
                      n_iters: int, env: Dict[str, Any]) -> Dict[str, Any]:
@@ -243,6 +271,22 @@ class NumpyHostBackend(Backend):
         return carry
 
 
+@contextlib.contextmanager
+def _full_fp32():
+    """TF32 off for the launches inside, the caller's flags back after.
+    cuBLAS and cuDNN read the flags when the host enqueues a call, so
+    saving and restoring them on the host scopes them exactly."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 class TorchDeviceBackend(Backend):
     """One torch device; on CUDA, async pinned uploads on transfer streams
     and eager launches on the compute stream (see the module docstring
@@ -253,6 +297,9 @@ class TorchDeviceBackend(Backend):
     # donate flag cannot change execution; it is kept for the tuner's
     # ``variant(donate=...)`` twins
     supports_donation = False
+    # neither flash kernel nor its plain version reads block_q/block_k
+    # (they are only validated), so every tile launches the same work
+    reads_kernel_tiles = False
 
     def __init__(self, device: Any = "cuda", *, n_streams: int = 2,
                  donate: bool = False):
@@ -266,15 +313,13 @@ class TorchDeviceBackend(Backend):
                     "host explicitly)")
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
-            # the polybench blocks are fp32 products: keep them in full
-            # fp32, as the reference does, not TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
             self._compute = torch.cuda.default_stream(dev)
             self._transfer: Dict[int, Any] = {0: self._compute}
         elif dev.type != "cpu":
             raise ValueError(f"unsupported device {dev}")
         self.device = dev
+        # CUDA event pairs of the compute launches while timing, else None
+        self._kernel_events: Optional[List[Tuple[Any, Any]]] = None
         self.n_streams = n_streams
         self.donate = donate
         # (n_streams, donate) -> twin; shared by every twin of this device
@@ -299,6 +344,23 @@ class TorchDeviceBackend(Backend):
     @property
     def xp(self):
         return torch
+
+    def time_kernels(self) -> None:
+        if self.on_cuda:
+            self._kernel_events = []
+
+    def kernel_seconds(self) -> Optional[float]:
+        events, self._kernel_events = self._kernel_events, None
+        if events is None:
+            return None
+        if not events:
+            return 0.0
+        events[-1][1].synchronize()
+        return sum(a.elapsed_time(b) for a, b in events) / 1e3
+
+    def finish(self) -> None:
+        if self.on_cuda:
+            self._compute.synchronize()
 
     # -- CUDA ordering helpers ---------------------------------------------
     def _stream(self, stream: int):
@@ -334,8 +396,16 @@ class TorchDeviceBackend(Backend):
         if not self.on_cuda:
             return body(), None
         self._consume(args, self._compute)
-        with torch.cuda.stream(self._compute):
+        events = self._kernel_events
+        with torch.cuda.stream(self._compute), _full_fp32():
+            if events is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record(self._compute)
             out = body()
+            if events is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(self._compute)
+                events.append((start, end))
         vals = out.values() if isinstance(out, dict) else out
         return out, self._ready(vals, self._compute)
 

@@ -20,8 +20,11 @@ individual passes; this module is the thin policy-selection entry point:
     Optimized placement with every codelet in ONE directive group.
 
 ``plan(program, policy="auto", backend=...)``
-    The plan-space explorer.  The tuner is not ported yet, so this
-    raises ``NotImplementedError``.
+    The plan-space explorer (``repro_torch.core.tuner``): enumerate
+    candidate plans across placement/stream/fusion/donation/kernel-tile
+    axes, rank them with the roofline-backed cost model, measure, and
+    return the winner with the full ranked table in
+    ``plan.meta["tuning"]``.
 
 Correctness of every policy is enforced by the shared
 ``SimulateFixPass`` (see ``repro_torch.core.passes.simulate``).
@@ -47,8 +50,12 @@ def plan(program: Program, *, optimize: bool = True,
 
     ``optimize`` is the legacy switch (True → "optimized", False →
     "naive"); ``policy`` overrides it.  ``backend`` and ``tune_kwargs``
-    are only legal with ``policy="auto"``, which waits for the tuner's
-    port and raises ``NotImplementedError``.
+    are only legal with ``policy="auto"`` (see
+    ``repro_torch.core.tuner.tune`` for the knobs: axes, ``top_k``,
+    ``reps``, ``measure``, ``objective="time"|"energy"|"memory"`` or a
+    weight mapping, and the persistence knobs
+    ``cache``/``refresh``/``calibrate``/``use_calibration``); an explicit
+    ``n_streams`` pins the auto policy's stream axis to that value.
 
     Every returned plan is vetted by the static verifier
     (``repro_torch.core.verify``): a plan with race / transfer-consistency /
@@ -60,7 +67,11 @@ def plan(program: Program, *, optimize: bool = True,
     if policy is None:
         policy = "optimized" if optimize else "naive"
     if policy == "auto":
-        raise NotImplementedError("tuner: port slice 4")
+        from .tuner import tune
+        if n_streams is not None:
+            tune_kwargs.setdefault("streams", (n_streams,))
+        return tune(program, backend=backend, analysis=analysis,
+                    **tune_kwargs)
     if tune_kwargs or backend is not None:
         extra = sorted(tune_kwargs) + (["backend"]
                                        if backend is not None else [])

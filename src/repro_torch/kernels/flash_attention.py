@@ -25,7 +25,8 @@ k, v (BK, T, D) where BK = batch x kv_heads.  Output: (BK, S, G, D).
 The tile parameters ``block_q``/``block_k`` are validated exactly as the
 reference does (clamp to the axis, then require it to divide), so every
 registry tile is legal here too; neither kernel's own tiling (SIMT: 64
-rows x 32 keys; sm90: 128 rows x 128 or 64 keys) depends on them.
+rows a block, keys in chunks of ``BC`` = 64; sm90: 128 rows x 128 or 64
+keys) depends on them.
 
 The kernels are built with ``nvcc`` at first use (``_build.load``;
 the sm90 one links ``-lcuda`` for its TMA descriptors) and bound with

@@ -31,21 +31,46 @@ def fold_attention(q, k, v):
     return qf.contiguous(), kf.contiguous(), vf.contiguous()
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the reference's backward: the gradient
+    is recomputed through ``models.attention.blockwise_attention``, the
+    memory-efficient form the reference's ``_flash_bwd`` differentiates
+    (``src/repro/kernels/ops.py``).  CPU tensors take the same Function,
+    with the kernel's plain version as the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+        B, S, K, G, D = q.shape
+        o = _fa.flash_attention_folded(*fold_attention(q, k, v),
+                                       causal=causal, window=window,
+                                       block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return o.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..models.attention import blockwise_attention
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = blockwise_attention(q, k, v, causal=ctx.causal,
+                                    window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 128, block_k: int = 128):
     """q: (B, S, K, G, D); k, v: (B, T, K, D) → (B, S, K, G, D).
-    Forward only: the gradient comes with the training port."""
+    Differentiable: the kernel's forward, and a backward that recomputes
+    through ``blockwise_attention``."""
     if any(isinstance(x, np.ndarray) for x in (q, k, v)):
         out = flash_attention(*(torch.as_tensor(np.asarray(x))
                                 for x in (q, k, v)),
                               causal=causal, window=window,
                               block_q=block_q, block_k=block_k)
         return np.ascontiguousarray(out.numpy())
-    B, S, K, G, D = q.shape
-    o = _fa.flash_attention_folded(*fold_attention(q, k, v), causal=causal,
-                                   window=window, block_q=block_q,
-                                   block_k=block_k)
-    return o.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4)
+    return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
 
 
 def rglru_scan(a, b, *, block_t: int = 256):

@@ -417,3 +417,101 @@ def test_cuda_bf16_forward_through_sm90_matches_plain(cuda):
     err = ((h_k.float() - h_p.float()).abs().max()
            / h_p.float().abs().max()).item()
     assert err <= 5e-2, err
+
+
+# -- flash attention's gradient, the device kernel time, TF32's scope -------
+
+def _grad_pair(q, k, v, g, window):
+    """(q, k, v) gradients through ops.flash_attention (the kernel's
+    forward, the blockwise backward) and through the plain version."""
+    outs = []
+    for fwd in ("kernel", "plain"):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        if fwd == "kernel":
+            o = ops.flash_attention(*xs, causal=True, window=window)
+        else:
+            B, S, K, G, D = q.shape
+            o = fa.flash_attention_plain(*ops.fold_attention(*xs),
+                                         causal=True, window=window)
+            o = o.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4)
+        assert o.requires_grad and o.grad_fn is not None
+        outs.append(torch.autograd.grad(o, xs, g))
+    return outs
+
+
+@pytest.mark.parametrize("dtype,D,tol", [("float32", 64, 1e-4),
+                                         ("bfloat16", 128, 2e-2)])
+@pytest.mark.parametrize("window", [0, 16])
+def test_cuda_flash_gradient_matches_plain(cuda, dtype, D, tol, window):
+    """fp32 (the SIMT route) to 1e-4 of the gradient's scale; bf16 at
+    D = 128 (the sm90 route) to 2e-2 normwise."""
+    rng = np.random.default_rng(D + window)
+    B, S, K, G = 1, 128, 2, 5
+    q, k, v, g = (torch.from_numpy(_normal(s, rng)).to(cuda,
+                                                       getattr(torch, dtype))
+                  for s in ((B, S, K, G, D), (B, S, K, D), (B, S, K, D),
+                            (B, S, K, G, D)))
+    before = (fa.launches_sm90, fa.launches_simt)
+    got, want = _grad_pair(q, k, v, g, window)
+    route = fa.route(q.dtype, D)
+    assert (fa.launches_sm90 - before[0], fa.launches_simt - before[1]) \
+        == ((1, 0) if route == "sm90" else (0, 1))
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        if dtype == "float32":
+            err = ((a - b).abs().max() / b.abs().max()).item()
+        else:
+            err = ((a - b).norm() / b.norm()).item()
+        assert err <= tol, (route, err)
+
+
+def test_cuda_kernel_time_is_device_time(cuda):
+    """A compiled attn_step execute on the card reads its kernel time
+    from CUDA events: positive and inside the wall time.  An execute
+    that raises stops the timing too."""
+    from repro_torch.core import Program, TorchDeviceBackend, execute, plan
+    from repro_torch.optim import attention_step_program
+    pl = plan(attention_step_program(2, shapes=(1, 512, 512, 2, 5, 64)))
+    be = TorchDeviceBackend("cuda")
+    for mode in ("compiled", "interpreted", "compiled"):
+        _, s = execute(pl, mode=mode, backend=be)
+        assert 0 < s.kernel_time <= s.wall_time, (mode, s)
+    assert be._kernel_events is None
+
+    def boom(xp, x):
+        raise RuntimeError("boom")
+    bad = Program("raises")
+    bad.bind("x", np.ones(4, np.float32))
+    bad.offload(boom, reads=("x",), writes=("y",), name="boom")
+    bad.set_outputs("y")
+    with pytest.raises(RuntimeError, match="boom"):
+        execute(plan(bad), backend=be)
+    assert be._kernel_events is None
+
+
+def test_cuda_backend_leaves_tf32_flags_alone(cuda):
+    """Building a backend changes no TF32 flag; its launches run with
+    TF32 off and the caller's flags come back after each."""
+    import repro_torch.core as core
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        for flags in ((True, True), (False, True), (True, False)):
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+            be = core.TorchDeviceBackend("cuda").variant(n_streams=3)
+            p = core.Program("tf32_probe")
+            p.bind("A", np.ones((4, 4), np.float32))
+            p.offload(lambda xp, A: {"B": A * 0 + float(
+                torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)},
+                reads=("A",), writes=("B",), name="probe")
+            p.set_outputs("B")
+            for mode in ("interpreted", "compiled"):
+                out, _ = core.execute(core.plan(p), mode=mode, backend=be)
+                assert (out["B"] == 0).all(), mode
+                assert (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -154,3 +154,44 @@ def test_wrapper_rejects_mismatched_operands():
         fa.flash_attention_folded(qf.to("meta"), torch.zeros(2, 64, 16,
                                                              device="meta"),
                                   torch.zeros(2, 64, 16, device="meta"))
+
+
+# -- the gradient ------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [0, 16])
+def test_flash_gradient_matches_reference_vjp(window):
+    """The port's ops.flash_attention differentiates like the reference's
+    custom_vjp (Pallas forward in interpret mode, blockwise backward):
+    q, k and v gradients within 1e-5 of the reference's scale, fp32.
+    The CPU tensors take the same autograd Function the card's do."""
+    import jax
+    B, S, K, G, D = 1, 64, 2, 2, 16
+    q, k, v, g = _inputs(((B, S, K, G, D), (B, S, K, D), (B, S, K, D),
+                          (B, S, K, G, D)), seed=window + 3)
+
+    def f(q, k, v):
+        return ref_ops.flash_attention(q, k, v, causal=True, window=window)
+    want_o, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o = ops.flash_attention(*xs, causal=True, window=window)
+    assert o.grad_fn is not None
+    got = torch.autograd.grad(o, xs, torch.from_numpy(g))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want_o),
+                               rtol=0, atol=TOL["float32"])
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        err = float(np.abs(a.numpy() - b).max())
+        assert err <= 1e-5 * float(np.abs(b).max()), err
+
+
+def test_flash_numpy_entry_and_no_grad_inputs():
+    """numpy in, numpy out; tensors that need no gradient give an output
+    without one."""
+    q, k, v = _inputs(_shapes(1), seed=9)
+    out = ops.flash_attention(q, k, v)
+    assert isinstance(out, np.ndarray) and out.shape == q.shape
+    t = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert not t.requires_grad
+    np.testing.assert_array_equal(t.numpy(), out)

@@ -9,6 +9,7 @@ found (actual reads, io table, groups, byte sizes, pure-device loops).
 import dataclasses
 
 import pytest
+import torch
 
 import repro.core as ref_core
 import repro.optim.offload as ref_offload
@@ -99,8 +100,17 @@ def test_pruned_read_is_not_an_actual_read():
 
 
 def test_auto_policy_waits_for_the_tuner():
+    """policy="auto" is the tuner (tests/test_torch_tuner.py holds it to
+    the reference's); its default backend is the card's, so without a
+    card it raises instead of tuning on the CPU."""
     p = port_polybench.build("3mm", n=16)[0]
-    with pytest.raises(NotImplementedError, match="tuner"):
-        port_core.plan(p, policy="auto")
+    pl = port_core.plan(p, policy="auto", backend="numpy", measure=False,
+                        cache=False)
+    assert pl.meta["tuning"]["chosen"] == port_core.tune(
+        p, backend="numpy", measure=False, cache=False).meta["tuning"][
+            "chosen"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_core.plan(p, policy="auto", cache=False)
     with pytest.raises(TypeError):
         port_core.plan(p, policy="optimized", backend="numpy")
