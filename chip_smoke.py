@@ -41,10 +41,29 @@ Drives the port's main path through its public entry points and checks it:
    time and its largest kernels (which must show the sm90 flash kernel
    once per attention layer and the SIMT one never, and rglru_scan's
    kernel once per recurrent layer);
-7. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
+7. serve: the serving path (``repro_torch.serve``: ``ServeRuntime``,
+   ``Engine``) at full width with the port's seeded weights, uploaded
+   through ``DeviceResidency``.  (a) Exactness, fp32, TF32 off: rwkv6-3b
+   (4 of 32 layers), qwen2.5-14b (2 of 48; once more with an int8 KV
+   pool) and recurrentgemma-2b (8 of 26, with one more request of a
+   2048-token prompt and 16 new tokens, so its 2048-slot ring wraps)
+   serve ``make_trace`` (seed 0, 16 requests, capacity 4); every
+   request's tokens must equal its standalone greedy decode (prefill at
+   batch 1, no padding, then decode_step) or differ first where that
+   decode's top two logits lie within ``SERVE_TIE`` of the largest
+   |logit|.  (b) Timed, bf16: rwkv6-3b at full depth and qwen2.5-14b at
+   8 of 48 layers serve ``benchmarks/port_serve_bench.py``'s trace (48
+   requests, capacity 8, max_seq 128) after its warm-up, continuous and
+   static, with its checks (all finish, no drop or leak, the pool never
+   reallocates, warm runs measure no bucket); the weights' h2d bytes
+   must equal the params', a second runtime on the same bucket cache
+   must measure nothing, and the decode step is timed (CUDA events) and
+   profiled.  No kernel counter may move in the phase: the reference's
+   serving path launches no Pallas kernel;
+8. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
    activations, fp32 and bf16, with its launch count read around it (no
    model calls rmsnorm, as in the reference);
-8. tuner: the plan-space tuner (``tune``, what ``plan(p, policy="auto")``
+9. tuner: the plan-space tuner (``tune``, what ``plan(p, policy="auto")``
    calls) on ``TorchDeviceBackend("cuda")`` with a fresh ``TuneCache``:
    (a) 3mm at n = 2048 and (b) attn_step at qwen2.5-14b's attention width
    (2 steps, fp32, flash's SIMT route) measured, each winner executed with
@@ -115,6 +134,14 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
             "wkv6": "src/repro/kernels/wkv6.py:86",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:56",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:22"}
+# serve (a): the fp32 exactness runs' depth, and the one tolerance on the
+# tokens: a request may differ from its standalone decode only where that
+# decode's top two logits lie within SERVE_TIE x max|logit| of each other
+SERVE_EXACT_CUTS = {"rwkv6-3b": 4, "qwen2.5-14b": 2, "recurrentgemma-2b": 8}
+SERVE_TIE = 1e-5
+# serve (b): the timed bf16 runs' depth (qwen2.5-14b cut to fit 3.76 B
+# params, 7.5 GB, beside rwkv6-3b's 3.09 B)
+SERVE_TIMED_LAYERS = {"rwkv6-3b": 32, "qwen2.5-14b": 8}
 # model_forward's fp32 correctness run keeps this many layers (griffin:
 # 2 periods of (R, R, A) plus the 2-layer tail, so the tail path runs)
 MODEL_CUTS = {"rwkv6-3b": 4, "recurrentgemma-2b": 8}
@@ -906,12 +933,18 @@ def _profile(fn):
     [[name, ms, calls], ...] largest first, and their device time in all,
     in ms.  (None, None) where the profiler sees no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return _device_rows(prof)
+
+
+def _device_rows(prof):
+    """A profile's device-side rows, largest first, and their sum (see
+    ``_profile``)."""
+    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels'
@@ -931,6 +964,300 @@ def _leaf_sizes(tree):
             yield from _leaf_sizes(v)
         else:
             yield v.numel()
+
+
+def _host_tree(tree):
+    """A params tree moved to the host (what the serving runtime uploads
+    through its residency layer)."""
+    return {k: _host_tree(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def _serve_params(cfg, seed: int, dtype=None):
+    """The port's seeded init drawn on the card (a CUDA generator keeps
+    host randn out of the run), constants perturbed, moved to the host."""
+    import torch
+
+    from repro_torch.models import Transformer
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = Transformer(cfg).init(gen, dtype=dtype)
+    _perturb_constants(params, gen)
+    host = _host_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    return host
+
+
+def _standalone_decode(rt, req):
+    """A request's greedy decode straight through the model: prefill at
+    batch 1 with no padding, then decode_step.  Returns its tokens and
+    each step's logits (on the card)."""
+    import torch
+    model, params = rt.model, rt.params
+    tokens = torch.from_numpy(req.prompt[None]).cuda()
+    logits, cache = model.prefill(params, {"tokens": tokens},
+                                  max_seq=rt.max_seq)
+    cache = model.quantize_cache(cache)
+    steps = [logits[0]]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok]
+    for i in range(req.max_new_tokens - 1):
+        pos = torch.full((1,), req.prompt_len + i, dtype=torch.int32,
+                         device="cuda")
+        logits, cache = model.decode_step(params, cache, {"tokens": tok}, pos)
+        steps.append(logits[0])
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(tok)
+    return torch.cat(out).cpu().numpy(), steps
+
+
+def _serve_exact(name: str, cut: int, smi: str) -> None:
+    """serve (a) for one model: the engine's tokens against each request's
+    standalone decode, fp32, full width, cut depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, Request, ServeRuntime, make_trace
+
+    cfg = dataclasses.replace(get_config(name), n_layers=cut,
+                              dtype="float32")
+    host = _serve_params(cfg, seed=1)
+    griffin = cfg.layer_pattern == "griffin"
+    # griffin also serves a 2048 + 16 token request: max_seq 2064 holds it
+    # and sizes the ring at the full 2048-token window, which the decode
+    # steps wrap.  The prompt is 2048, not 2040: griffin's buckets are
+    # exact, and the prefill's blockwise attention (the reference's too)
+    # needs a prompt over 512 tokens to be a multiple of its 512 chunk
+    max_seq = 2064 if griffin else 128
+    for kv_quant in (False, True) if name == "qwen2.5-14b" else (False,):
+        t = time.perf_counter()
+        rt = ServeRuntime(cfg, max_seq=max_seq, params=host,
+                          kv_quant=kv_quant)
+        rt.tune = None
+        reqs = make_trace(cfg, n_requests=16, rate_rps=1e6, seed=0,
+                          max_seq=max_seq)
+        if griffin:
+            rng = np.random.default_rng(1)
+            reqs.append(Request(rid=16, prompt=rng.integers(
+                0, cfg.vocab, (2048,)).astype(np.int32), max_new_tokens=16))
+        eng = Engine(rt, capacity=4)
+        rep = eng.run(reqs, respect_arrivals=False)
+        check(rep["n_requests"] == len(reqs) and eng.pool.in_use == 0,
+              f"serve {name}: {rep['n_requests']} of {len(reqs)} finished")
+        ties = []
+        for r in eng.completed:
+            want, steps = _standalone_decode(rt, r)
+            check(r.tokens.shape == want.shape,
+                  f"serve {name} rid {r.rid}: {r.tokens.shape} tokens")
+            diff = np.flatnonzero(r.tokens != want)
+            if len(diff):
+                j = int(diff[0])
+                top2 = torch.topk(steps[j].float(), 2).values
+                gap = float(top2[0] - top2[1])
+                bound = SERVE_TIE * float(steps[j].float().abs().max())
+                check(gap <= bound,
+                      f"serve {name} kv_quant={kv_quant} rid {r.rid}: "
+                      f"token {j} is {r.tokens[j]}, the standalone decode's "
+                      f"{want[j]}, whose top-two gap {gap} > {bound}")
+                ties.append({"rid": r.rid, "step": j, "gap": gap,
+                             "bound": bound})
+        report("serve", run="fp32_exact", model=name, n_layers=cut,
+               kv_quant=kv_quant, max_seq=max_seq, capacity=4,
+               n_requests=len(reqs), steps=rep["steps"],
+               gen_tokens=rep["gen_tokens"], tie_tol=SERVE_TIE,
+               near_tie_divergences=ties, seconds=time.perf_counter() - t,
+               card=smi)
+        del rt, eng
+        torch.cuda.empty_cache()
+
+
+def _decode_step_ms(rt, capacity: int, reps: int = 30):
+    """Median device time of one whole-batch decode step (CUDA events on
+    stream 0 around ``ServeRuntime.decode``), on a full pool at positions
+    16.., and the state to profile one more step."""
+    import torch
+
+    from repro_torch.serve import KVSlotPool
+    pool = KVSlotPool(rt.model, capacity, rt.max_seq)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    state = (pool.cache, torch.zeros((capacity,), **i32),
+             torch.full((capacity,), 16, **i32),
+             torch.zeros((capacity, 64), **i32),
+             torch.zeros((capacity,), **i32))
+    s0 = rt.be.torch_stream(0)
+    for _ in range(3):
+        rt.decode(*state)
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(s0)
+        rt.decode(*state)
+        e1.record(s0)
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sorted(times)[len(times) // 2], state
+
+
+def _prefill_ms(rt, lens, reps: int = 3) -> dict:
+    """Median time (CUDA events on stream 1) of one prefill per bucket."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Request
+    s1 = rt.be.torch_stream(1)
+    out = {}
+    for L in lens:
+        req = Request(rid=0, prompt=np.zeros((L,), np.int32),
+                      max_new_tokens=2)
+        padded = rt.bucket_of(L)
+        times = []
+        for _ in range(reps + 1):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record(s1)
+            rt._prefill(req, padded)
+            e1.record(s1)
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        out[padded] = sorted(times[1:])[reps // 2]
+    return out
+
+
+def _profile_step(fn):
+    """One call of fn under torch.profiler, after one more unprofiled
+    call: its device rows and busy ms (``_device_rows``), the host's
+    events (aten calls and CUDA runtime calls) by self CPU time as
+    [[name, ms, calls], ...], and the profiled call's wall ms (the
+    profiler's own cost included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows, busy_ms = _device_rows(prof)
+    from torch.autograd import DeviceType
+    host = sorted(([e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    return rows, busy_ms, host, wall_ms
+
+
+def _serve_timed(name: str, n_layers: int, smi: str) -> None:
+    """serve (b) for one model: port_serve_bench's trace at full width in
+    bf16, its checks, the decode step timed and profiled, and a second
+    runtime on the same bucket cache."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Engine, Request, ServeRuntime
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    import port_serve_bench as bench
+
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    host = _serve_params(cfg, seed=2, dtype=torch.bfloat16)
+    n_params = sum(_leaf_sizes(host))
+    n_bytes = 2 * n_params
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_tc-")
+    saved = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = cache_dir
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        rt = ServeRuntime(cfg, max_seq=128, params=host)
+        check(rt.weights_bytes == n_bytes,
+              f"serve {name}: weights h2d {rt.weights_bytes} B, params "
+              f"{n_bytes} B")
+        row = bench.bench_runtime(rt, n_requests=48, capacity=8, seed=0,
+                                  gate=False)
+        cont = row["_reports"]["continuous"]
+        step_ms, state = _decode_step_ms(rt, capacity=8)
+        rows, busy_ms, host_rows, profiled_ms = _profile_step(
+            lambda: rt.decode(*state))
+        lens = sorted({r.prompt_len for r in cont["completed"]})
+        prefill = _prefill_ms(rt, lens)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        h2d_s = rt.weights_h2d_s
+        del rt, state
+        torch.cuda.empty_cache()
+
+        # a fresh runtime on the same bucket cache measures nothing
+        rt2 = ServeRuntime(cfg, max_seq=128, params=host)
+        Engine(rt2, capacity=8).run(
+            [Request(rid=i, prompt=np.zeros((L,), np.int32),
+                     max_new_tokens=2) for i, L in enumerate(lens)],
+            respect_arrivals=False)
+        check(rt2.tune_measurements == 0 and rt2.tune_hits == len(lens),
+              f"serve {name}: a second runtime measured "
+              f"{rt2.tune_measurements} buckets, hit {rt2.tune_hits}")
+        second = {"measurements": rt2.tune_measurements,
+                  "hits": rt2.tune_hits}
+        del rt2
+        torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = saved
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    del row["_reports"]
+    report("serve", run="bf16_timed", model=name, n_layers=n_layers,
+           params=n_params, card=smi, **row,
+           decode_step_ms=step_ms, decode_steps_per_s=1e3 / step_ms,
+           prefill_ms_by_bucket=prefill,
+           weights_h2d_bytes=n_bytes, weights_h2d_s=h2d_s,
+           weights_h2d_gb_per_s=n_bytes / h2d_s / 1e9,
+           peak_mem_gb=peak_gb,
+           profiled_step_wall_ms=profiled_ms, device_busy_ms=busy_ms,
+           device_busy_share=None if busy_ms is None else busy_ms / step_ms,
+           top5_device_ms=None if rows is None else rows[:5],
+           top8_host_self_ms=host_rows[:8],
+           host_self_ms=sum(r[1] for r in host_rows),
+           aten_calls=sum(r[2] for r in host_rows
+                          if r[0].startswith("aten::")),
+           second_runtime_tune=second)
+
+
+def phase_serve(smi: str) -> None:
+    """The serving path (see the module docstring, 7).  The kernels'
+    launch counters must not move: serving runs no Pallas kernel in the
+    reference, and none in the port."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm as rn
+    before = {**_launch_counts(), "rmsnorm": rn.launches}
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, cut in SERVE_EXACT_CUTS.items():
+            _serve_exact(name, cut, smi)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    t_exact = time.perf_counter() - t_phase
+    for name, n_layers in SERVE_TIMED_LAYERS.items():
+        _serve_timed(name, n_layers, smi)
+    after = {**_launch_counts(), "rmsnorm": rn.launches}
+    check(after == before, f"serve launched a kernel: {before} -> {after}")
+    report("serve", run="all", seconds=time.perf_counter() - t_phase,
+           exact_seconds=t_exact, launches_unchanged=after, card=smi)
 
 
 def phase_rmsnorm_path() -> int:
@@ -1030,7 +1357,7 @@ def _check_measured(name: str, pl, be, tc, reps: int) -> None:
 
 
 def phase_tuner() -> int:
-    """The plan-space tuner on the card (see the module docstring, 8).
+    """The plan-space tuner on the card (see the module docstring, 9).
     Returns flash's SIMT launches in the phase: the tuner's measurements
     of attn_step and its winner's execute."""
     import shutil
@@ -1148,6 +1475,7 @@ def main() -> int:
     for name, cut in MODEL_CUTS.items():
         for kernel, n in phase_model_forward(name, cut).items():
             launches[kernel] += n
+    phase_serve(smi)
     launches["rmsnorm"] = phase_rmsnorm_path()
     launches["flash_attention"] += phase_tuner()
     for name in rows:

@@ -371,6 +371,11 @@ class TorchDeviceBackend(Backend):
             s = self._transfer[phys] = torch.cuda.Stream(self.device)
         return s
 
+    def torch_stream(self, stream: int = 0):
+        """The physical CUDA stream logical ``stream`` folds onto (0: the
+        compute stream), or None on the CPU."""
+        return self._stream(stream) if self.on_cuda else None
+
     def _ready(self, tensors, stream) -> "torch.cuda.Event":
         """Record on ``stream`` the event after which ``tensors`` hold
         their values, and attach it to each of them."""

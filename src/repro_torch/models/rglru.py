@@ -1,7 +1,7 @@
 """Griffin recurrent block: temporal conv + RG-LRU gated linear recurrence
 [arXiv:2402.19427].
 
-The port of ``src/repro/models/rglru.py``'s training/prefill path.  The
+The port of ``src/repro/models/rglru.py``.  The
 RG-LRU diagonal recurrence
     h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
     a_t = exp(-c · softplus(Λ) ⊙ σ(W_a x_t))
@@ -9,7 +9,8 @@ runs through the CUDA kernel (``kernels.ops.rglru_scan``) when
 ``use_pallas``, else through ``rglru_scan_ref``, a plain sequential loop
 (torch has no public associative scan).  The block is
     out = W_out ( GeLU(W_gate x) ⊙ RG-LRU(conv1d(W_x x)) ).
-Decode and its cache wait for the serving slice.
+Decode (``rglru_decode``) is a single-step update carrying (h, conv
+window), with no kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from ..kernels import ops as kops
 from ..kernels.ref import rglru_scan_ref
 from .layers import P, gelu, no_policy
 
-__all__ = ["rglru_spec", "rglru_apply", "rglru_scan_ref", "RGLRU_C"]
+__all__ = ["rglru_spec", "rglru_apply", "rglru_decode", "init_rglru_cache",
+           "rglru_scan_ref", "RGLRU_C"]
 
 RGLRU_C = 8.0
 
@@ -53,11 +55,15 @@ def _gates(params, u, x):
     return a, b
 
 
-def _conv1d(params, x, width: int):
-    """Causal depthwise temporal conv from zero history.  x: (B, T, d).
+def _conv1d(params, x, width: int, state=None):
+    """Causal depthwise temporal conv.  x: (B, T, d).  ``state``: (B, w-1,
+    d) previous inputs for decode continuity (zero history if None).
     Returns (out, the last width-1 inputs)."""
-    pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+    if state is None:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                          dtype=x.dtype, device=x.device)
+    else:
+        pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * params["conv_w"][i]
               for i in range(width))
@@ -65,15 +71,44 @@ def _conv1d(params, x, width: int):
 
 
 def rglru_apply(params, x, cfg, *, policy=None, use_pallas: bool = False):
-    """Training/prefill.  x: (B, T, d) -> (B, T, d)."""
+    """Training/prefill.  x: (B, T, d).  Returns (out (B, T, d), (h, conv)):
+    the last step's fp32 hidden state and the conv window, the layer's
+    decode cache after the prompt."""
     no_policy(policy)
     u = x @ params["w_x"]
-    u, _ = _conv1d(params, u, cfg.rglru_conv_width)
+    u, conv_state = _conv1d(params, u, cfg.rglru_conv_width)
     a, b = _gates(params, u, x)
     if use_pallas:
         h = kops.rglru_scan(a, b)
     else:
         h = rglru_scan_ref(a, b)
-    h = h.to(x.dtype)
+    state = (h[:, -1].float(), conv_state)
     gate = gelu(x @ params["w_gate"])
-    return (gate * h) @ params["w_out"]
+    return (gate * h.to(x.dtype)) @ params["w_out"], state
+
+
+def init_rglru_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,
+                     device=None):
+    d, w = cfg.d_model, cfg.rglru_conv_width
+    return {
+        "h": torch.zeros((n_layers, batch, d), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((n_layers, batch, w - 1, d), dtype=dtype,
+                            device=device),
+    }
+
+
+def rglru_decode(params, x, cfg, cache, *, policy=None):
+    """One step.  x: (B, 1, d); cache: dict(h (B, d) fp32, conv (B, w-1,
+    d)) of THIS layer, written in place.  Returns (out, cache)."""
+    no_policy(policy)
+    u = x @ params["w_x"]
+    u, conv_state = _conv1d(params, u, cfg.rglru_conv_width,
+                            state=cache["conv"])
+    a, b = _gates(params, u, x)
+    h = a[:, 0] * cache["h"] + b[:, 0]                 # (B, d) fp32
+    gate = gelu(x @ params["w_gate"])
+    out = (gate * h[:, None].to(x.dtype)) @ params["w_out"]
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv_state)
+    return out, cache

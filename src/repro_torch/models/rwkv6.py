@@ -9,6 +9,8 @@ where w_t = exp(-exp(w0 + lora_w(x̃_t))) and the x̃ inputs are ddlerp
 token shifts.  The recurrence runs through the CUDA kernel
 (``kernels.ops.wkv6``) when ``use_pallas`` and no state is given, else
 through a plain sequential loop, in the reference's branch order.
+Decode carries (S, x_prev) per layer (``init_rwkv_cache``): a state given
+to ``rwkv6_time_mix`` takes the sequential loop, never the kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from ..kernels import ops as kops
 from .layers import P, no_policy, rms_norm
 
 __all__ = ["rwkv6_spec", "rwkv6_time_mix", "rwkv6_channel_mix",
-           "wkv6_scan_ref"]
+           "init_rwkv_cache", "wkv6_scan_ref"]
 
 LORA_R = 32
 _MIX = ("w", "k", "v", "r", "g")
@@ -142,3 +144,16 @@ def rwkv6_channel_mix(p, x, cfg, *, x_prev=None):
     xr = x + xx * p["mu_r"]
     kk = torch.square(F.relu(xk @ p["w_k"]))
     return torch.sigmoid(xr @ p["w_r"]) * (kk @ p["w_v"]), x[:, -1]
+
+
+def init_rwkv_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,
+                    device=None):
+    d = cfg.d_model
+    hs = cfg.rwkv_head_size
+    H = d // hs
+    return {
+        "tm_x": torch.zeros((n_layers, batch, d), dtype=dtype, device=device),
+        "cm_x": torch.zeros((n_layers, batch, d), dtype=dtype, device=device),
+        "state": torch.zeros((n_layers, batch, H, hs, hs),
+                             dtype=torch.float32, device=device),
+    }

@@ -1,18 +1,30 @@
-"""Decoder assembly: the forward of the rwkv, griffin and dense patterns.
+"""Decoder assembly: the rwkv, griffin and dense patterns.
 
-The port of ``src/repro/models/transformer.py``'s ``loss`` path.  The
-reference's ``lax.scan`` over stacked layer params (with per-layer
+The port of ``src/repro/models/transformer.py``.  The reference's
+``lax.scan`` over stacked layer params (with per-layer
 ``jax.checkpoint``) is a Python loop over the stacked layer axis here; the
 stacked trees keep the reference's layout (``layers``; griffin's
 ``periods`` of (R, R, A) plus a ``tail`` of R layers: 26 layers are 8
 periods and 2 tail layers), so weights carry across unchanged
 (``models.convert.params_from_numpy``).
 
-``loss`` is the forward only, under ``torch.no_grad()``: the reference has
-no gradient through its kernels either.  With ``use_pallas`` the wkv6,
-rglru_scan and flash-attention CUDA kernels run (their plain versions for
-CPU tensors).  ``prefill``, ``decode_step`` and ``init_cache`` wait for
-the serving slice; MoE, ``moe_ep`` and ``kv_quant`` for later slices.
+Three entry points, as in the reference:
+  * ``loss`` (and ``hidden``) — the forward only, under
+    ``torch.no_grad()``: the reference has no gradient through its
+    kernels either.  With ``use_pallas`` the wkv6, rglru_scan and
+    flash-attention CUDA kernels run (their plain versions for CPU
+    tensors);
+  * ``prefill`` — the forward over a prompt that also builds the serving
+    cache (KV / ring buffer / recurrent state per layer kind).  It runs
+    no kernel, as the reference's collect mode: ``blockwise_attention``
+    and the sequential scans;
+  * ``decode_step`` — one token for the whole stack against the cache,
+    which it writes IN PLACE (the serving engine's pool is allocated once
+    and never replaced) and returns.
+
+The cache trees keep the reference's keys, layer-stacked layouts and
+dtypes, so they compare leaf by leaf.  MoE, ``moe_ep`` and the
+embedding-input / codebook archs wait for later slices.
 """
 from __future__ import annotations
 
@@ -21,11 +33,14 @@ from typing import Any, Dict
 
 import torch
 
-from .attention import attn_apply, attn_spec
+from .attention import (attn_apply, attn_decode, attn_spec, init_kv_cache,
+                        quantize_kv_cache)
 from .layers import (P, cross_entropy, ffn_apply, ffn_spec, init_tree,
                      no_policy, rms_norm)
-from .rglru import rglru_apply, rglru_spec
-from .rwkv6 import rwkv6_channel_mix, rwkv6_spec, rwkv6_time_mix
+from .rglru import (init_rglru_cache, rglru_apply, rglru_decode,
+                    rglru_spec)
+from .rwkv6 import (init_rwkv_cache, rwkv6_channel_mix, rwkv6_spec,
+                    rwkv6_time_mix)
 
 __all__ = ["Transformer", "model_spec", "LOSS_CHUNK"]
 
@@ -107,29 +122,77 @@ def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
-def _attn_block(lp, x, cfg, positions, window, use_pallas):
-    xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    h = x + attn_apply(lp["attn"], xn, cfg, positions, window=window,
-                       use_pallas=use_pallas)
+def _stack(caches):
+    """Stack a list of per-layer cache trees along a new leading axis."""
+    return {k: _stack([c[k] for c in caches]) if isinstance(caches[0][k], dict)
+            else torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
+def _ring_cache_from_kv(k, v, window: int):
+    """Pack the last ``window`` (roped) k/v into a ring buffer laid out by
+    absolute position % window (the decode-side slot rule)."""
+    B, S, K, D = k.shape
+    W = min(window, S)
+    pos = torch.arange(S - W, S, device=k.device)
+    slot = pos % window if S >= window else pos
+    ck = torch.zeros((B, window, K, D), dtype=k.dtype, device=k.device)
+    cv = torch.zeros((B, window, K, D), dtype=v.dtype, device=v.device)
+    cpos = torch.full((B, window), -1, dtype=torch.int32, device=k.device)
+    ck[:, slot] = k[:, -W:]
+    cv[:, slot] = v[:, -W:]
+    cpos[:, slot] = pos.to(torch.int32)
+    return {"k": ck, "v": cv, "pos": cpos}
+
+
+def _full_cache_from_kv(k, v, max_seq: int):
+    B, S, K, D = k.shape
+    ck = torch.zeros((B, max_seq, K, D), dtype=k.dtype, device=k.device)
+    cv = torch.zeros((B, max_seq, K, D), dtype=v.dtype, device=v.device)
+    cpos = torch.full((B, max_seq), -1, dtype=torch.int32, device=k.device)
+    ck[:, :S] = k
+    cv[:, :S] = v
+    cpos[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
+    return {"k": ck, "v": cv, "pos": cpos}
+
+
+def _attn_block(lp, x, cfg, positions, window, use_pallas, collect=False,
+                max_seq=0):
+    """Returns (x, cache); cache is {} unless ``collect`` (prefill), which
+    runs ``blockwise_attention`` as the reference's collect mode does."""
+    attn_out, (k, v) = attn_apply(
+        lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions,
+        window=window, use_pallas=use_pallas and not collect)
+    if not collect:
+        cache = {}
+    elif window:
+        cache = _ring_cache_from_kv(k, v, window)
+    else:
+        cache = _full_cache_from_kv(k, v, max_seq)
+    h = x + attn_out
     return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                         cfg.activation)
+                         cfg.activation), cache
 
 
-def _rec_block(lp, x, cfg, use_pallas):
-    xn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    h = x + rglru_apply(lp["rglru"], xn, cfg, use_pallas=use_pallas)
-    return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                         cfg.activation)
-
-
-def _rwkv_block(lp, x, cfg, use_pallas):
-    o, _ = rwkv6_time_mix(lp["rwkv"]["tm"],
-                          rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-                          use_pallas=use_pallas)
+def _rec_block(lp, x, cfg, use_pallas, collect=False):
+    o, (h_last, conv) = rglru_apply(
+        lp["rglru"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+        use_pallas=use_pallas and not collect)
+    cache = {"h": h_last, "conv": conv} if collect else {}
     h = x + o
-    o2, _ = rwkv6_channel_mix(lp["rwkv"]["cm"],
-                              rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
-    return h + o2
+    return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                         cfg.activation), cache
+
+
+def _rwkv_block(lp, x, cfg, use_pallas, collect=False):
+    o, (tm_x, state) = rwkv6_time_mix(
+        lp["rwkv"]["tm"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
+        use_pallas=use_pallas and not collect)
+    h = x + o
+    o2, cm_x = rwkv6_channel_mix(lp["rwkv"]["cm"],
+                                 rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+    cache = ({"tm_x": tm_x, "cm_x": cm_x, "state": state} if collect
+             else {})
+    return h + o2, cache
 
 
 # ---------------------------------------------------------------------------
@@ -148,9 +211,6 @@ class Transformer:
         if self.moe_ep:
             raise NotImplementedError("moe_ep (expert-parallel MoE) comes "
                                       "with the mesh slice of the port")
-        if self.kv_quant:
-            raise NotImplementedError("kv_quant (int8 KV cache) comes with "
-                                      "the serving slice of the port")
 
     # ---- params ----------------------------------------------------------
     def spec(self):
@@ -169,28 +229,47 @@ class Transformer:
         return init_tree(self.spec(), generator, device, dt)
 
     # ---- forward ---------------------------------------------------------
-    def _backbone(self, params, x, positions):
+    def _backbone(self, params, x, positions, *, collect=False, max_seq=0):
+        """Run all layers.  Returns (hidden, caches); caches is {} unless
+        ``collect``, else the stacked cache tree ``init_cache`` lays out."""
         cfg, use_pallas = self.cfg, self.use_pallas
         if cfg.layer_pattern == "rwkv":
+            caches = []
             for i in range(cfg.n_layers):
-                x = _rwkv_block(_index(params["layers"], i), x, cfg,
-                                use_pallas)
-        elif cfg.layer_pattern == "griffin":
-            n_periods = cfg.n_layers // 3
-            for i in range(n_periods):
+                x, c = _rwkv_block(_index(params["layers"], i), x, cfg,
+                                   use_pallas, collect)
+                caches.append(c)
+            return x, _stack(caches) if collect else {}
+        if cfg.layer_pattern == "griffin":
+            rec, attn, tail = [], [], []
+            for i in range(cfg.n_layers // 3):
                 period = _index(params["periods"], i)
+                pair = []
                 for j in range(2):
-                    x = _rec_block(_index(period["rec"], j), x, cfg,
-                                   use_pallas)
-                x = _attn_block(period["attn"], x, cfg, positions,
-                                cfg.local_window, use_pallas)
+                    x, c = _rec_block(_index(period["rec"], j), x, cfg,
+                                      use_pallas, collect)
+                    pair.append(c)
+                x, c = _attn_block(period["attn"], x, cfg, positions,
+                                   cfg.local_window, use_pallas, collect,
+                                   max_seq)
+                rec.append(_stack(pair) if collect else {})
+                attn.append(c)
             for i in range(cfg.n_layers % 3):
-                x = _rec_block(_index(params["tail"], i), x, cfg, use_pallas)
-        else:
-            for i in range(cfg.n_layers):
-                x = _attn_block(_index(params["layers"], i), x, cfg,
-                                positions, 0, use_pallas)
-        return x
+                x, c = _rec_block(_index(params["tail"], i), x, cfg,
+                                  use_pallas, collect)
+                tail.append(c)
+            if not collect:
+                return x, {}
+            caches = {"rec": _stack(rec), "attn": _stack(attn)}
+            if tail:
+                caches["tail"] = _stack(tail)
+            return x, caches
+        caches = []
+        for i in range(cfg.n_layers):
+            x, c = _attn_block(_index(params["layers"], i), x, cfg,
+                               positions, 0, use_pallas, collect, max_seq)
+            caches.append(c)
+        return x, _stack(caches) if collect else {}
 
     @torch.no_grad()
     def hidden(self, params, batch):
@@ -199,7 +278,7 @@ class Transformer:
         x = params["embed"][batch["tokens"]]
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        h = self._backbone(params, x, positions)
+        h, _ = self._backbone(params, x, positions)
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
 
     @torch.no_grad()
@@ -223,14 +302,130 @@ class Transformer:
         ce = total / n_chunks
         return ce, {"ce": ce, "aux": 0.0}
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError("prefill comes with the serving slice of "
-                                  "the port")
+    # ---- serving ---------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, params, batch, max_seq: int, policy=None,
+                last_pos=None):
+        """Forward over the prompt; returns (last-token logits, caches).
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("decode_step comes with the serving slice "
-                                  "of the port")
+        ``last_pos`` ((B,) int, optional) selects the position whose
+        logits are returned instead of ``S - 1``: the serving engine
+        right-pads prompts to a shape bucket and needs the logits of each
+        request's REAL last token.  Causality keeps hidden states at
+        positions ``<= last_pos`` independent of the padding suffix, and
+        the decode-side validity mask (``cache_pos <= pos``) hides the
+        padded KV entries until decode overwrites them in place."""
+        no_policy(policy)
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"]]
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        h, caches = self._backbone(params, x, positions, collect=True,
+                                   max_seq=max_seq)
+        hl = (h[:, -1] if last_pos is None
+              else h[torch.arange(B, device=h.device), last_pos])
+        return rms_norm(hl, params["final_norm"], cfg.norm_eps) \
+            @ params["head"], caches
 
-    def init_cache(self, *args, **kwargs):
-        raise NotImplementedError("init_cache comes with the serving slice "
-                                  "of the port")
+    def init_cache(self, batch: int, max_seq: int, dtype=None, device=None):
+        """The zero cache of ``batch`` rows.  ``device`` defaults to
+        ``cuda`` and raises without a card (``"meta"`` builds shapes
+        only)."""
+        cfg = self.cfg
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Transformer.init_cache: no CUDA device is "
+                               "available (pass device='cpu' to build the "
+                               "cache on the host explicitly)")
+        dt = dtype or getattr(torch, cfg.dtype)
+        if cfg.layer_pattern == "rwkv":
+            return init_rwkv_cache(cfg, cfg.n_layers, batch, dt, device)
+        if cfg.layer_pattern == "griffin":
+            n_periods, tail = divmod(cfg.n_layers, 3)
+            rec = init_rglru_cache(cfg, n_periods * 2, batch, dt, device)
+            cache = {
+                "rec": {k: t.reshape((n_periods, 2) + t.shape[1:])
+                        for k, t in rec.items()},
+                "attn": init_kv_cache(cfg, batch, max_seq, n_periods, dt,
+                                      window=cfg.local_window,
+                                      quant=self.kv_quant, device=device),
+            }
+            if tail:
+                cache["tail"] = init_rglru_cache(cfg, tail, batch, dt,
+                                                 device)
+            return cache
+        return init_kv_cache(cfg, batch, max_seq, cfg.n_layers, dt,
+                             quant=self.kv_quant, device=device)
+
+    def quantize_cache(self, cache):
+        """A prefill's ``cache`` in the layout ``init_cache`` gives: with
+        ``kv_quant`` the KV leaves become int8 with per-(token, head)
+        scales, as ``decode_step`` writes each token; otherwise ``cache``
+        itself.  ``prefill`` builds float KV whatever ``kv_quant`` says,
+        as the reference's does (whose engine has no int8 pool: its insert
+        finds two trees); the serving engine and a standalone int8 decode
+        go through this."""
+        if not self.kv_quant or self.cfg.layer_pattern == "rwkv":
+            return cache
+        if self.cfg.layer_pattern == "griffin":
+            return {**cache, "attn": quantize_kv_cache(cache["attn"])}
+        return quantize_kv_cache(cache)
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, batch, pos, policy=None):
+        """One token for the whole stack.  batch: tokens (B,); pos: (B,)
+        int32.  Writes the step into ``cache`` in place and returns
+        (logits (B, vocab), cache)."""
+        no_policy(policy)
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"][:, None]]
+
+        def rec_step(lp, x, c):
+            o, _ = rglru_decode(lp["rglru"],
+                                rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, c)
+            x = x + o
+            return x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"],
+                                                     cfg.norm_eps),
+                                 cfg.activation)
+
+        def attn_step(lp, x, c, window):
+            o, _ = attn_decode(lp["attn"],
+                               rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, c,
+                               pos, window=window)
+            h = x + o
+            return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"],
+                                                     cfg.norm_eps),
+                                 cfg.activation)
+
+        if cfg.layer_pattern == "rwkv":
+            for i in range(cfg.n_layers):
+                lp, c = _index(params["layers"], i), _index(cache, i)
+                o, (tm_x, state) = rwkv6_time_mix(
+                    lp["rwkv"]["tm"], rms_norm(x, lp["ln1"], cfg.norm_eps),
+                    cfg, x_prev=c["tm_x"], state=c["state"])
+                h = x + o
+                o2, cm_x = rwkv6_channel_mix(
+                    lp["rwkv"]["cm"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                    cfg, x_prev=c["cm_x"])
+                x = h + o2
+                c["tm_x"].copy_(tm_x)
+                c["cm_x"].copy_(cm_x)
+                c["state"].copy_(state)
+        elif cfg.layer_pattern == "griffin":
+            for i in range(cfg.n_layers // 3):
+                lp = _index(params["periods"], i)
+                c = {"rec": _index(cache["rec"], i),
+                     "attn": _index(cache["attn"], i)}
+                for j in range(2):
+                    x = rec_step(_index(lp["rec"], j), x,
+                                 _index(c["rec"], j))
+                x = attn_step(lp["attn"], x, c["attn"], cfg.local_window)
+            for i in range(cfg.n_layers % 3):
+                x = rec_step(_index(params["tail"], i), x,
+                             _index(cache["tail"], i))
+        else:
+            for i in range(cfg.n_layers):
+                x = attn_step(_index(params["layers"], i), x,
+                              _index(cache, i), 0)
+        h = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+        return h @ params["head"], cache

@@ -515,3 +515,181 @@ def test_cuda_backend_leaves_tf32_flags_alone(cuda):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+# -- serving: decode, the pool, two streams, idle rows ----------------------
+
+SERVE_ARCHS = ("qwen2.5-14b", "rwkv6-3b", "recurrentgemma-2b")
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _host_params(name):
+    """Seeded reduced fp32 params on the host, constants perturbed."""
+    cfg = reduced(get_config(name))
+    gen = torch.Generator().manual_seed(0)
+    params = Transformer(cfg).init(gen, device="cpu")
+    _perturb_constants(params, gen)
+    return cfg, params
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _serve_runtime(name, device, max_seq=48):
+    from repro_torch.core import TorchDeviceBackend
+    from repro_torch.serve import ServeRuntime
+    cfg, params = _host_params(name)
+    rt = ServeRuntime(cfg, max_seq=max_seq, params=params,
+                      backend=TorchDeviceBackend(device))
+    rt.tune = None
+    return rt
+
+
+def _assert_trees_close(got, want, tol=1e-5):
+    from repro_torch.serve.kvpool import tree_flatten
+    paths, g = tree_flatten(got)
+    assert paths == tree_flatten(want)[0]
+    for path, a, b in zip(paths, g, tree_flatten(want)[1]):
+        a, b = a.cpu(), b.cpu()
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        if a.is_floating_point():
+            scale = max(1.0, b.abs().max().item())
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol * scale,
+                                       msg=path)
+        else:
+            assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("name", SERVE_ARCHS)
+def test_cuda_decode_step_matches_cpu(no_tf32, name):
+    """fp32 prefill + five decode steps (the same seeded tokens) on the
+    card against the same on the CPU: logits and caches within 1e-5 of
+    their scale, TF32 off."""
+    cfg, params = _host_params(name)
+    m = Transformer(cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 45)).astype(np.int32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        logits, cache = m.prefill(p, {"tokens": toks[:, :40].to(dev)},
+                                  max_seq=48)
+        outs = [logits.cpu()]
+        for i in range(40, 45):
+            pos = torch.full((2,), i, dtype=torch.int32, device=dev)
+            logits, cache = m.decode_step(p, cache,
+                                          {"tokens": toks[:, i].to(dev)}, pos)
+            outs.append(logits.cpu())
+        runs[dev] = (outs, cache)
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
+    _assert_trees_close(runs["cuda"][1], runs["cpu"][1])
+
+
+def test_cuda_pool_insert_keeps_storage(cuda):
+    from repro_torch.serve import KVSlotPool, Request
+    from repro_torch.serve.kvpool import tree_flatten
+    rt = _serve_runtime("recurrentgemma-2b", "cuda")
+    pool = KVSlotPool(rt.model, capacity=3, max_seq=rt.max_seq, device=cuda)
+    before = [t.data_ptr() for t in tree_flatten(pool.cache)[1]]
+    for rid in range(6):
+        slot = pool.alloc()
+        req = Request(rid=rid, prompt=np.arange(5 + rid, dtype=np.int32),
+                      max_new_tokens=2)
+        _, cache = rt.prefill_request(req)
+        with rt.on_stream(0):
+            pool.insert(cache, 0, slot)
+        pool.free(slot)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in tree_flatten(pool.cache)[1]] == before
+
+
+@pytest.mark.parametrize("pressure", [False, True],
+                         ids=["ordered", "allocator_pressure"])
+def test_cuda_prefill_stream1_insert_stream0(cuda, pressure):
+    """A prefill on stream 1 that finishes late, then at once an insert on
+    stream 0: the pool row equals the synchronous result.  Under
+    pressure, stream 0 is held back too, and while its insert waits the
+    prefill's tensors are dropped and their sizes (and a large tensor)
+    allocated, filled with NaN and freed on stream 1: without
+    ``record_stream`` the allocator would hand the insert's source to
+    them."""
+    from repro_torch.serve import KVSlotPool, Request
+    from repro_torch.serve.kvpool import tree_flatten
+    rt = _serve_runtime("qwen2.5-14b", "cuda")
+    req = Request(rid=0, prompt=np.arange(3, 40, dtype=np.int32),
+                  max_new_tokens=2)
+    s0, s1 = rt.be.torch_stream(0), rt.be.torch_stream(1)
+    assert s0 != s1
+
+    want = KVSlotPool(rt.model, capacity=2, max_seq=rt.max_seq, device=cuda)
+    slot = want.alloc()
+    _, cache = rt.prefill_request(req)
+    torch.cuda.synchronize()
+    want.insert(cache, 0, slot)
+    torch.cuda.synchronize()
+    sizes = [t.shape for t in tree_flatten(cache)[1]]
+    del cache
+
+    got = KVSlotPool(rt.model, capacity=2, max_seq=rt.max_seq, device=cuda)
+    slot = got.alloc()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        torch.cuda._sleep(50_000_000)            # the prefill lands late
+    _, cache = rt.prefill_request(req)
+    with rt.on_stream(0):
+        if pressure:
+            torch.cuda._sleep(100_000_000)       # ... and the insert later
+        got.insert(cache, 0, slot)
+    if pressure:
+        del cache
+        with torch.cuda.stream(s1):
+            junk = [torch.full(s, float("nan"), device=cuda)
+                    for s in sizes for _ in range(4)]
+            junk.append(torch.full((1 << 26,), float("nan"), device=cuda))
+            del junk
+    torch.cuda.synchronize()
+    _assert_trees_close(got.cache, want.cache, tol=0.0)
+
+
+@pytest.mark.parametrize("name", SERVE_ARCHS)
+def test_cuda_idle_row_past_max_seq(no_tf32, name):
+    """An idle row runs 76 decode steps, past max_seq = 48: on the card
+    its writes past a full cache's end are dropped without a device-side
+    assert, and the engine's tokens and the live row of its pool equal
+    the CPU's (1e-4 of the scale after 76 steps)."""
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve.kvpool import tree_flatten
+    out = {}
+    for dev in ("cpu", "cuda"):
+        rt = _serve_runtime(name, dev)
+        eng = Engine(rt, capacity=2, max_batch_tokens=28)
+        rep = eng.run([Request(rid=r, prompt=np.arange(r, r + 8,
+                                                       dtype=np.int32),
+                               max_new_tokens=20) for r in range(4)],
+                      respect_arrivals=False)
+        torch.cuda.synchronize()
+        assert rep["steps"] == 76 and rep["pool"]["peak_in_use"] == 1
+        live = {k: v.select(ax, 0) for (k, v), ax in zip(
+            zip(*tree_flatten(eng.pool.cache)), eng.pool.batch_axes)}
+        out[dev] = ({r.rid: r.tokens for r in eng.completed}, live)
+        if name == "qwen2.5-14b":   # the idle row's positions 48..75 dropped
+            idle = eng.pool.cache["pos"][:, 1].cpu()
+            assert torch.equal(idle, torch.arange(48, dtype=torch.int32)
+                               .expand_as(idle))
+    for rid, toks in out["cpu"][0].items():
+        np.testing.assert_array_equal(out["cuda"][0][rid], toks)
+    _assert_trees_close(out["cuda"][1], out["cpu"][1], tol=1e-4)

@@ -1,7 +1,9 @@
-"""The port stands alone: importing all of ``repro_torch`` (its models
-included) pulls in neither JAX nor any module of the reference package,
-and where there is no CUDA card its device entry points (the backend,
-``execute``, ``Transformer.init``) raise instead of running on the CPU."""
+"""The port stands alone: importing all of ``repro_torch`` (its models and
+its serving engine included) pulls in neither JAX nor any module of the
+reference package, and where there is no CUDA card its device entry
+points (the backend, ``execute``, ``Transformer.init`` and ``init_cache``,
+``ServeRuntime``, ``launch.serve``) raise instead of running on the
+CPU."""
 import os
 import re
 import shutil
@@ -31,15 +33,24 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import TorchDeviceBackend, execute, get_backend, plan
 from repro_torch.models import Transformer
 from repro_torch.polybench import build
-model = Transformer(reduced(get_config("rwkv6-3b")), use_pallas=True)
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.serve import ServeRuntime
+cfg = reduced(get_config("rwkv6-3b"))
+model = Transformer(cfg, use_pallas=True)
 if torch.cuda.is_available():
     assert get_backend(None).device.type == "cuda"
     params = model.init(torch.Generator("cuda"))
     assert params["embed"].device.type == "cuda"
+    assert ServeRuntime(cfg, max_seq=16).device.type == "cuda"
 else:
     for make in (TorchDeviceBackend, lambda: get_backend(None),
                  lambda: execute(plan(build("3mm", n=8)[0])),
-                 lambda: model.init(torch.Generator())):
+                 lambda: model.init(torch.Generator()),
+                 lambda: model.init_cache(1, 8),
+                 lambda: ServeRuntime(cfg, max_seq=16),
+                 lambda: serve_main(["--arch", "rwkv6-3b", "--reduced"]),
+                 lambda: serve_main(["--arch", "rwkv6-3b", "--reduced",
+                                     "--engine"])):
         try:
             make()
         except RuntimeError as e:

@@ -132,7 +132,7 @@ def test_rglru_apply_matches_reference(use_pallas):
     x = _x((2, 64, cfg.d_model), seed=5)
     want = ref_rglru.rglru_apply(_layer(jp["periods"]["rec"]["rglru"], 0, 1),
                                  jnp.asarray(x), jcfg, use_pallas=use_pallas)
-    got = rglru.rglru_apply(
+    got, _ = rglru.rglru_apply(
         jax.tree.map(lambda t: t[0][1], tp["periods"]["rec"]["rglru"]),
         torch.from_numpy(x), cfg, use_pallas=use_pallas)
     _close(got, want)
@@ -154,7 +154,7 @@ def test_attn_apply_matches_reference(name, use_pallas):
         use_pallas=use_pallas)
     tl = tp[stack]["attn"]["attn"] if stack == "periods" \
         else tp[stack]["attn"]
-    got = attention.attn_apply(
+    got, _ = attention.attn_apply(
         jax.tree.map(lambda t: t[0], tl), torch.from_numpy(x), cfg,
         torch.from_numpy(np.ascontiguousarray(pos)),
         window=cfg.local_window, use_pallas=use_pallas)
@@ -387,15 +387,21 @@ def test_init_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: m.prefill(),
-    lambda m: m.decode_step(),
-    lambda m: m.init_cache(),
+    lambda m: m.prefill({}, {}, 8, policy=object()),
+    lambda m: m.decode_step({}, {}, {}, None, policy=object()),
+    lambda m: Transformer(dataclasses.replace(m.cfg, n_codebooks=4)
+                          ).init_cache(2, 8, device="meta"),
     lambda m: m.loss({}, {}, policy=object()),
     lambda m: Transformer(m.cfg, moe_ep=True),
-    lambda m: Transformer(m.cfg, kv_quant=True),
+    lambda m: Transformer(dataclasses.replace(m.cfg, input_embeds=True),
+                          kv_quant=True),
     lambda m: Transformer(dataclasses.replace(m.cfg, n_experts=4, top_k=2)),
 ], ids=["prefill", "decode_step", "init_cache", "policy", "moe_ep",
         "kv_quant", "moe"])
 def test_later_slices_raise(call):
+    """What waits for later slices raises: sharding policies (prefill,
+    decode_step and loss take only ``policy=None``), the codebook-head
+    cache, an int8 KV cache behind embedding inputs, expert parallelism
+    and MoE layers."""
     with pytest.raises(NotImplementedError):
         call(Transformer(reduced(get_config("qwen2.5-14b"))))
