@@ -98,8 +98,11 @@ def bench_runtime(rt, *, n_requests: int, capacity: int, seed: int,
     # runs eagerly and compiles nothing per shape, so that would only
     # add uncounted decode steps.
     buckets = {rt.bucket_of(r.prompt_len): r.prompt_len for r in reqs}
-    warm = [Request(rid=1000 + i, prompt=np.zeros((L,), np.int32),
-                    max_new_tokens=2)
+
+    def prompt(L):
+        return (np.zeros((L, cfg.d_model), np.float32) if cfg.input_embeds
+                else np.zeros((L,), np.int32))
+    warm = [Request(rid=1000 + i, prompt=prompt(L), max_new_tokens=2)
             for i, L in enumerate(sorted(buckets.values()))]
     run_mode(rt, warm, join_policy="continuous", capacity=capacity)
 

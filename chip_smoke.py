@@ -15,7 +15,11 @@ Drives the port's main path through its public entry points and checks it:
    k and v (1,4096,8,128)), causal and window=1024, fp32 (the SIMT route)
    and bf16 (the sm90 tensor-core route), and at recurrentgemma-2b's
    (q (1,4096,1,10,256), k and v (1,4096,1,256), bf16 and fp32, window
-   2048), beside scaled_dot_product_attention; wkv6 at rwkv6-3b's width
+   2048), beside scaled_dot_product_attention, and in bf16 (causal) at
+   the GQA group sizes of the model zoo: musicgen-large (q (1,4096,32,1,
+   64)), qwen3-moe-30b-a3b ((1,4096,4,8,128)) and arctic-480b
+   ((1,4096,8,7,128), where a 128-row block straddles a query position);
+   wkv6 at rwkv6-3b's width
    (r, k, v, w (1,4096,40,64), u (40,64)), fp32 and bf16 r/k/v/u, and
    once more in fp32 with decays of exactly 0, 1e-30 and 1.0 among them;
    rglru_scan at
@@ -41,17 +45,33 @@ Drives the port's main path through its public entry points and checks it:
    time and its largest kernels (which must show the sm90 flash kernel
    once per attention layer and the SIMT one never, and rglru_scan's
    kernel once per recurrent layer);
+   (c) the rest of the zoo in bf16, B = 1, at published widths cut in
+   depth only, kernels against the plain path (final hidden states held
+   normwise at ``FORWARD_BF16_TOL``, one flash launch per attention
+   layer), each with its parameter count and peak device memory (see
+   ``ZOO_FORWARD``): qwen3-moe-30b-a3b (MoE, 8 of 48 layers, S = 4096,
+   also timed and profiled: expert products, dispatch, flash, other
+   GEMMs), arctic-480b (MoE with its dense branch, 1 of 35, S = 2048),
+   musicgen-large (embeds in, four codebook heads, all 48 layers), and
+   internlm2-20b, command-r-35b, nemotron-4-15b and chameleon-34b (2
+   layers each, S = 4096);
 7. serve: the serving path (``repro_torch.serve``: ``ServeRuntime``,
    ``Engine``) at full width with the port's seeded weights, uploaded
    through ``DeviceResidency``.  (a) Exactness, fp32, TF32 off: rwkv6-3b
    (4 of 32 layers), qwen2.5-14b (2 of 48; once more with an int8 KV
-   pool) and recurrentgemma-2b (8 of 26, with one more request of a
-   2048-token prompt and 16 new tokens, so its 2048-slot ring wraps)
-   serve ``make_trace`` (seed 0, 16 requests, capacity 4); every
+   pool), recurrentgemma-2b (8 of 26, with one more request of a
+   2048-token prompt and 16 new tokens, so its 2048-slot ring wraps),
+   qwen3-moe-30b-a3b (2 of 48) and musicgen-large (2 of 48: embeds
+   prompts, zero embeds a step, codebook 0 sampled) serve ``make_trace``
+   (seed 0, 16 requests, capacity 4); every
    request's tokens must equal its standalone greedy decode (prefill at
    batch 1, no padding, then decode_step) or differ first where that
    decode's top two logits lie within ``SERVE_TIE`` of the largest
-   |logit|.  (b) Timed, bf16: rwkv6-3b at full depth and qwen2.5-14b at
+   |logit|.  The MoE run lifts the capacity factor to n_experts / top_k
+   (C >= T): at the published 1.25 the engine's padded prefill buckets and
+   idle decode rows compete for capacity that a standalone decode at
+   batch 1 does not share, so the two may rightly drop different tokens.
+   (b) Timed, bf16: rwkv6-3b at full depth and qwen2.5-14b at
    8 of 48 layers serve ``benchmarks/port_serve_bench.py``'s trace (48
    requests, capacity 8, max_seq 128) after its warm-up, continuous and
    static, with its checks (all finish, no drop or leak, the pool never
@@ -79,8 +99,9 @@ Drives the port's main path through its public entry points and checks it:
    TF32 must be as the phase found it.
 
 Each kernel's ``launches`` in the kernels line sums the paths that ran it:
-attn_step, model_forward and tuner for flash's SIMT route (``flash_attention``),
-model_forward for its sm90 route (``flash_attention_sm90``), wkv6 and
+attn_step, model_forward and tuner for flash's SIMT route
+(``flash_attention``), model_forward (the zoo's runs included) for its
+sm90 route (``flash_attention_sm90``), wkv6 and
 rglru_scan, rmsnorm_path for rmsnorm; comparison launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -137,7 +158,8 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
 # serve (a): the fp32 exactness runs' depth, and the one tolerance on the
 # tokens: a request may differ from its standalone decode only where that
 # decode's top two logits lie within SERVE_TIE x max|logit| of each other
-SERVE_EXACT_CUTS = {"rwkv6-3b": 4, "qwen2.5-14b": 2, "recurrentgemma-2b": 8}
+SERVE_EXACT_CUTS = {"rwkv6-3b": 4, "qwen2.5-14b": 2, "recurrentgemma-2b": 8,
+                    "qwen3-moe-30b-a3b": 2, "musicgen-large": 2}
 SERVE_TIE = 1e-5
 # serve (b): the timed bf16 runs' depth (qwen2.5-14b cut to fit 3.76 B
 # params, 7.5 GB, beside rwkv6-3b's 3.09 B)
@@ -145,6 +167,24 @@ SERVE_TIMED_LAYERS = {"rwkv6-3b": 32, "qwen2.5-14b": 8}
 # model_forward's fp32 correctness run keeps this many layers (griffin:
 # 2 periods of (R, R, A) plus the 2-layer tail, so the tail path runs)
 MODEL_CUTS = {"rwkv6-3b": 4, "recurrentgemma-2b": 8}
+# model_forward (c): the rest of the zoo in bf16 at published widths, cut in
+# depth only, as (layers, S).  arctic-480b keeps one layer: its init draws
+# each stacked expert leaf in fp32 before the cast (17.8 GB a leaf), so one
+# layer peaks near 46 GB of the card's 80
+ZOO_FORWARD = {"qwen3-moe-30b-a3b": (8, 4096), "arctic-480b": (1, 2048),
+               "musicgen-large": (48, 4096), "internlm2-20b": (2, 4096),
+               "command-r-35b": (2, 4096), "nemotron-4-15b": (2, 4096),
+               "chameleon-34b": (2, 4096)}
+ZOO_TIMED = "qwen3-moe-30b-a3b"
+# ... whose final hidden states are held to FORWARD_BF16_TOL end to end:
+# all but musicgen-large, whose 48 layers without QK-norm amplify any
+# difference past 1 (phase_zoo_forward); every arch's layers are held one
+# by one
+ZOO_END_TO_END = ("qwen3-moe-30b-a3b", "arctic-480b", "internlm2-20b",
+                  "command-r-35b", "nemotron-4-15b", "chameleon-34b")
+# kernel_vs_plain: flash sm90 at the zoo's GQA shapes, (model, seed)
+ZOO_FLASH = (("musicgen-large", 6), ("qwen3-moe-30b-a3b", 7),
+             ("arctic-480b", 8))
 
 # the tuner phase's programs: candidates, kernel tile variants and the
 # execution classes left after dominance pruning, as the reference's tuner
@@ -363,10 +403,11 @@ def _flash_rows(peaks: dict, model: str, B: int, S: int, cases,
 
 def phase_kernel(peaks: dict) -> dict:
     """flash at qwen2.5-14b's attention width (fp32 and bf16, causal and
-    window 1024) and at recurrentgemma-2b's (bf16 and fp32, window 2048,
-    the model's own).  Returns the kernels line's rows: the fp32 causal one
-    for the SIMT route, the bf16 causal qwen-width one for the sm90
-    route."""
+    window 1024), at recurrentgemma-2b's (bf16 and fp32, window 2048,
+    the model's own) and, bf16 causal, at the zoo's (``ZOO_FLASH``: G = 1
+    at D = 64, G = 8, G = 7).  Returns the kernels line's rows: the fp32
+    causal one for the SIMT route, the bf16 causal qwen-width one for the
+    sm90 route."""
     import torch
     qwen = _flash_rows(peaks, "qwen2.5-14b", 1, 4096, [
         (dtype, tol, window)
@@ -381,6 +422,11 @@ def phase_kernel(peaks: dict) -> dict:
           and griffin[("bfloat16", 2048)]["route"] == "sm90"
           and griffin[("float32", 2048)]["route"] == "simt",
           "flash routes: want fp32 on simt, bf16 at D = 128 and 256 on sm90")
+    for model, seed in ZOO_FLASH:
+        row = _flash_rows(peaks, model, 1, 4096,
+                          [(torch.bfloat16, BF16_TOL, 0)], seed=seed)
+        check(row[("bfloat16", 0)]["route"] == "sm90",
+              f"flash at {model} width: want the sm90 route in bf16")
     return {"flash_attention": qwen[("float32", 0)],
             "flash_attention_sm90": qwen[("bfloat16", 0)]}
 
@@ -923,6 +969,194 @@ def _bf16_cut_depth(name: str, cfg, gen, batch) -> dict:
     return counts
 
 
+def _zoo_batch(cfg, gen, S: int, B: int = 1) -> dict:
+    """Seeded inputs on the card: tokens, or embeds (B, S, d) for an
+    ``input_embeds`` arch, and labels (B, S[, n_codebooks])."""
+    import torch
+    if cfg.input_embeds:
+        return {"embeds": torch.randn((B, S, cfg.d_model), generator=gen,
+                                      device="cuda"),
+                "labels": torch.randint(0, cfg.vocab,
+                                        (B, S, cfg.n_codebooks),
+                                        generator=gen, device="cuda")}
+    return {k: torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                             device="cuda") for k in ("tokens", "labels")}
+
+
+def _layerwise_rel(cfg, params, batch) -> list:
+    """Each layer of a full-attention stack fed the plain path's input,
+    with kernels and without: the normwise difference of its two outputs
+    over the plain output's norm, layer by layer.  Comparisons: their
+    launches are not counted."""
+    import torch
+
+    from repro_torch.models import Transformer
+    from repro_torch.models import transformer as tr
+    x = Transformer(cfg)._embed(params, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    rels = []
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            lp = tr._index(params["layers"], i)
+            y_k = tr._attn_block(lp, x, cfg, positions, 0, True)[0].float()
+            y_p = tr._attn_block(lp, x, cfg, positions, 0, False)[0]
+            rels.append(((y_k - y_p.float()).norm()
+                         / y_p.float().norm()).item())
+            x = y_p
+    return rels
+
+
+def phase_zoo_forward(name: str, n_layers: int, S: int, smi: str,
+                      reps: int = 3) -> dict:
+    """model_forward (c) for one arch of the zoo: bf16, B = 1, published
+    width, ``n_layers`` deep, kernels against the plain path.  The timed
+    arch (``ZOO_TIMED``) also runs ``reps`` timed forwards and one under
+    the profiler.  Returns the kernels' launches.
+
+    Two comparisons: the final hidden states of the whole stack, and each
+    layer fed the plain path's input (``_layerwise_rel``).  With these
+    seeded weights attention is nearly an argmax (the init's fan-in for
+    w_q and w_k is n_heads, so scores have a standard deviation of tens)
+    and the stacks without QK-norm amplify any difference layer by layer:
+    musicgen-large's fp32 kernels-vs-plain difference grows about six
+    times a layer (1.4e-7, 4.6e-6, 3.2e-5, 1.8e-4 over its first four
+    layers), and in bf16 it saturates near 1 by the eighth.  So the final
+    states are held at ``FORWARD_BF16_TOL`` where the stack is shallow
+    enough to measure the kernel (``ZOO_END_TO_END``), and every arch's
+    layers are held one by one at the same tolerance."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = Transformer(cfg).init(gen, dtype=torch.bfloat16)
+    n_params = sum(_leaf_sizes(params))
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _perturb_constants(params, gen)
+    batch = _zoo_batch(cfg, gen, S)
+    kernels, plain = (Transformer(cfg, use_pallas=p) for p in (True, False))
+    _set_launch_counts(dict.fromkeys(_counters(), 0))       # run starts
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    loss_k, metrics = kernels.loss(params, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    counts = _launch_counts()                               # ... and ends
+    want = _expected_launches(cfg, torch.bfloat16)
+    check(counts == want, f"{name} bf16: launches {counts}, want {want}")
+    loss_p, _ = plain.loss(params, batch)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    # comparisons: their launches are not counted
+    h_k, h_p = kernels.hidden(params, batch), plain.hidden(params, batch)
+    layer_rel = _layerwise_rel(cfg, params, batch)
+    _set_launch_counts(counts)
+    h_k, h_p = h_k.float(), h_p.float()
+    h_rel = ((h_k - h_p).norm() / h_p.norm()).item()
+    check(math.isfinite(loss_k) and h_k.shape == (1, S, cfg.d_model)
+          and math.isfinite(h_rel), f"{name} bf16: loss {loss_k}, hidden "
+          f"{tuple(h_k.shape)}, normwise err {h_rel}")
+    check(name not in ZOO_END_TO_END or h_rel <= FORWARD_BF16_TOL,
+          f"{name} bf16 hidden states with kernels vs plain: normwise err "
+          f"{h_rel} > {FORWARD_BF16_TOL}")
+    check(max(layer_rel) <= FORWARD_BF16_TOL,
+          f"{name} bf16 layers fed the same input, kernels vs plain: "
+          f"normwise errs {layer_rel} beyond {FORWARD_BF16_TOL}")
+    del h_k, h_p
+    line = dict(model=name, run="bf16_zoo", n_layers=n_layers,
+                of_layers=get_config(name).n_layers, batch=1, seq=S,
+                params=n_params, weights_gb=2 * n_params / 1e9,
+                loss_kernels=loss_k, loss_plain=loss_p,
+                rel_err=abs(loss_k - loss_p) / abs(loss_p),
+                router_aux=float(metrics["aux"]) if cfg.is_moe else None,
+                hidden_rel_err=h_rel, end_to_end_checked=name in
+                ZOO_END_TO_END, layer_rel_err_max=max(layer_rel),
+                layer_rel_err=layer_rel if len(layer_rel) <= 8 else
+                layer_rel[:4] + layer_rel[-4:],
+                tol=FORWARD_BF16_TOL, launches=counts,
+                first_forward_ms=e0.elapsed_time(e1),
+                init_peak_mem_gb=init_peak_gb)
+    if name == ZOO_TIMED:
+        times = []
+        for _ in range(reps):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            kernels.loss(params, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        breakdown = _profile_moe(lambda: kernels.loss(params, batch), cfg)
+        counts = _launch_counts()
+        want = _expected_launches(cfg, torch.bfloat16, reps + 2)
+        check(counts == want, f"{name} bf16 timed: launches {counts}, want "
+              f"{want}")
+        n_attn = cfg.layer_kinds().count("attn")
+        check(breakdown["flash_sm90"][1] == n_attn,
+              f"{name} bf16 profile: {breakdown['flash_sm90'][1]} sm90 "
+              f"flash launches, want {n_attn}")
+        wall_ms = sorted(times)[len(times) // 2]
+        line.update(wall_ms=wall_ms, wall_ms_all=times,
+                    tokens_per_s=S / wall_ms * 1e3, launches=counts,
+                    profile=breakdown)
+    line.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                seconds=time.perf_counter() - t_phase, card=smi)
+    report("model_forward", **line)
+    del params, kernels, plain, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _profile_moe(fn, cfg) -> dict:
+    """One call of fn under torch.profiler, its device time split as
+    {part: [ms, calls]}: the expert products (``aten::bmm`` whose first
+    operand has n_experts rows), the other GEMMs (``aten::mm``, ``addmm``,
+    ``bmm``), the dispatch and combine (``sort``, ``bincount``, ``cumsum``,
+    ``index``, ``index_put_``), each as the device time of the kernels its
+    host op launched; flash's sm90 kernel by name; and the device's busy
+    time with its largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {"expert_bmm": [0.0, 0], "other_gemm": [0.0, 0],
+             "dispatch_combine": [0.0, 0]}
+    dispatch = {"aten::sort", "aten::bincount", "aten::cumsum",
+                "aten::index", "aten::index_put_"}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU:
+            continue
+        ms = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0.0)) / 1e3
+        shapes = e.input_shapes or [[]]
+        if e.key == "aten::bmm" and shapes[0][:1] == [cfg.n_experts]:
+            part = "expert_bmm"
+        elif e.key in ("aten::mm", "aten::addmm", "aten::bmm"):
+            part = "other_gemm"
+        elif e.key in dispatch:
+            part = "dispatch_combine"
+        else:
+            continue
+        parts[part][0] += ms
+        parts[part][1] += e.count
+    rows, busy_ms = _device_rows(prof)
+    flash = [r for r in rows or () if "flash_fwd_sm90_kernel<" in r[0]]
+    parts["flash_sm90"] = [sum(r[1] for r in flash),
+                           sum(r[2] for r in flash)]
+    parts["device_busy_ms"] = busy_ms
+    parts["top8_device_ms"] = None if rows is None else rows[:8]
+    return parts
+
+
 def _tree_float(v):
     return {k: _tree_float(x) for k, x in v.items()} if isinstance(v, dict) \
         else v.float()
@@ -990,23 +1224,29 @@ def _serve_params(cfg, seed: int, dtype=None):
 
 def _standalone_decode(rt, req):
     """A request's greedy decode straight through the model: prefill at
-    batch 1 with no padding, then decode_step.  Returns its tokens and
-    each step's logits (on the card)."""
+    batch 1 with no padding, then decode_step (zero embeds a step for an
+    embeds arch, as the engine steps).  Returns its tokens and each step's
+    sampled logits (codebook 0's for a codebook arch; on the card)."""
     import torch
-    model, params = rt.model, rt.params
-    tokens = torch.from_numpy(req.prompt[None]).cuda()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  max_seq=rt.max_seq)
+    model, params, cfg = rt.model, rt.params, rt.cfg
+    key = "embeds" if cfg.input_embeds else "tokens"
+    logits, cache = model.prefill(
+        params, {key: torch.from_numpy(req.prompt[None]).cuda()},
+        max_seq=rt.max_seq)
     cache = model.quantize_cache(cache)
-    steps = [logits[0]]
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    first = (lambda lg: lg[..., 0, :]) if cfg.n_codebooks else \
+        (lambda lg: lg)
+    steps = [first(logits)[0]]
+    tok = torch.argmax(first(logits), dim=-1).to(torch.int32)
     out = [tok]
     for i in range(req.max_new_tokens - 1):
         pos = torch.full((1,), req.prompt_len + i, dtype=torch.int32,
                          device="cuda")
-        logits, cache = model.decode_step(params, cache, {"tokens": tok}, pos)
-        steps.append(logits[0])
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step = ({"embeds": torch.zeros((1, cfg.d_model), device="cuda")}
+                if cfg.input_embeds else {"tokens": tok})
+        logits, cache = model.decode_step(params, cache, step, pos)
+        steps.append(first(logits)[0])
+        tok = torch.argmax(first(logits), dim=-1).to(torch.int32)
         out.append(tok)
     return torch.cat(out).cpu().numpy(), steps
 
@@ -1024,6 +1264,10 @@ def _serve_exact(name: str, cut: int, smi: str) -> None:
 
     cfg = dataclasses.replace(get_config(name), n_layers=cut,
                               dtype="float32")
+    if cfg.is_moe:
+        # C >= T: no bucket, batch or standalone decode drops a token
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     host = _serve_params(cfg, seed=1)
     griffin = cfg.layer_pattern == "griffin"
     # griffin also serves a 2048 + 16 token request: max_seq 2064 holds it
@@ -1066,6 +1310,8 @@ def _serve_exact(name: str, cut: int, smi: str) -> None:
                              "bound": bound})
         report("serve", run="fp32_exact", model=name, n_layers=cut,
                kv_quant=kv_quant, max_seq=max_seq, capacity=4,
+               capacity_factor=cfg.capacity_factor if cfg.is_moe else None,
+               input_embeds=cfg.input_embeds,
                n_requests=len(reqs), steps=rep["steps"],
                gen_tokens=rep["gen_tokens"], tie_tol=SERVE_TIE,
                near_tie_divergences=ties, seconds=time.perf_counter() - t,
@@ -1475,6 +1721,11 @@ def main() -> int:
     for name, cut in MODEL_CUTS.items():
         for kernel, n in phase_model_forward(name, cut).items():
             launches[kernel] += n
+    t = time.perf_counter()
+    for name, (n_layers, S) in ZOO_FORWARD.items():
+        for kernel, n in phase_zoo_forward(name, n_layers, S, smi).items():
+            launches[kernel] += n
+    report("model_forward", run="zoo_all", seconds=time.perf_counter() - t)
     phase_serve(smi)
     launches["rmsnorm"] = phase_rmsnorm_path()
     launches["flash_attention"] += phase_tuner()

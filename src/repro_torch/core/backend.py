@@ -16,6 +16,12 @@ so the same ``Plan`` can run against:
     is a real wait point.  ``device="cpu"`` is the explicit host form the
     CPU tests use; a CUDA device without a card raises, never falls back.
 
+Registered names, against the reference's: ``"numpy"`` → ``"numpy"``,
+``jax`` → ``"torch"``, ``pinned`` → ``"pinned"``.  ``"torch"`` and
+``"pinned"`` both build the ``TorchDeviceBackend``, whose uploads already
+stage through pinned host memory (what the reference's pinned backend
+adds to its ``jax`` one); the mesh backend waits for the mesh slice.
+
 Streams are logical ids chosen by the planner (``AdvancedLoad.stream``
 etc.); a backend may map many logical streams onto fewer physical ones
 (``Backend._stream_of``).  Stream 0 is the compute stream by convention.
@@ -483,6 +489,8 @@ class TorchDeviceBackend(Backend):
 _REGISTRY: Dict[str, Callable[[], Backend]] = {
     "numpy": NumpyHostBackend,
     "torch": TorchDeviceBackend,
+    # the reference's "pinned": staged through pinned memory, as "torch" is
+    "pinned": TorchDeviceBackend,
 }
 
 

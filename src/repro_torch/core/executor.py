@@ -134,8 +134,8 @@ def execute(p: Plan, inputs: Optional[Dict[str, np.ndarray]] = None,
     """Run the plan; return (program outputs on host, stats).
 
     ``mode`` is "interpreted" or "compiled"; ``backend`` is a
-    ``Backend`` instance, a registered name ("torch", "numpy"), or None
-    for the default torch backend on ``cuda:0``.  ``fuse_loops`` (compiled
+    ``Backend`` instance, a registered name ("torch", "pinned", "numpy"),
+    or None for the default torch backend on ``cuda:0``.  ``fuse_loops`` (compiled
     mode only) rolls eligible pure-device loops into a single backend
     dispatch (``Backend.launch_loop``); disable it to benchmark the
     per-iteration segment path.  When left None it follows the plan:

@@ -9,8 +9,11 @@ tokens are fetched back lazily in batches (delegatestore).
 ``serve()`` is the one-shot static-batch path: one group of ``batch``
 identical requests, prefill + ``gen - 1`` decode steps.  The continuous-
 batching engine (``repro_torch.serve``) generalizes it to request-level
-scheduling; ``--engine`` runs a seeded open-loop trace through it.  Both
-run on ``cuda:0`` (and raise without a card) unless ``--backend cpu``:
+scheduling; ``--engine`` runs a seeded open-loop trace through it.  An
+``input_embeds`` arch (musicgen-large) takes a seeded embeds prompt and
+steps on zero embeds, and a codebook arch is sampled on codebook 0, as
+the reference does.  Both run on ``cuda:0`` (and raise without a card)
+unless ``--backend cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
         --reduced --batch 4 --prompt-len 16 --gen 16 --backend cpu
@@ -55,13 +58,23 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
                         device=dev)                       # resident
     rng = np.random.default_rng(seed)
     max_seq = prompt_len + gen
-    prompt = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
-    ).to(dev)}
+    if cfg.input_embeds:
+        prompt = {"embeds": torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cfg.d_model), dtype=np.float32)).to(dev)}
+    else:
+        prompt = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+        ).to(dev)}
+
+    def sample(logits):
+        """Greedy tokens; codebook archs sample codebook 0."""
+        if cfg.n_codebooks:
+            logits = logits[..., 0, :]
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, prompt, max_seq=max_seq)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    tok = sample(logits)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -70,9 +83,13 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     for i in range(gen - 1):
         pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
                          device=dev)
-        logits, cache = model.decode_step(params, cache, {"tokens": tok},
-                                          pos)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if cfg.input_embeds:
+            step_in = {"embeds": torch.zeros((batch, cfg.d_model),
+                                             dtype=torch.float32, device=dev)}
+        else:
+            step_in = {"tokens": tok}
+        logits, cache = model.decode_step(params, cache, step_in, pos)
+        tok = sample(logits)
         out_tokens.append(tok)
     # delegatestore: one fetch for the whole generation
     generated = torch.stack(out_tokens, dim=1).cpu().numpy()

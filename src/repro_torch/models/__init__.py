@@ -1,5 +1,6 @@
-"""Model substrate: the forward of the rwkv, griffin and dense patterns as
-one composable Transformer (the port of ``src/repro/models``)."""
+"""Model substrate: the rwkv, griffin and full-attention patterns, dense or
+MoE (``moe.py``), over tokens or embeddings, as one composable Transformer
+(the port of ``src/repro/models``)."""
 from .convert import params_from_numpy
 from .layers import P, cross_entropy, rms_norm
 from .transformer import Transformer, model_spec

@@ -1,4 +1,5 @@
-"""Decoder assembly: the rwkv, griffin and dense patterns.
+"""Decoder assembly for all assigned architectures: the rwkv, griffin and
+full-attention patterns, dense or MoE, over tokens or embeddings.
 
 The port of ``src/repro/models/transformer.py``.  The reference's
 ``lax.scan`` over stacked layer params (with per-layer
@@ -13,7 +14,8 @@ Three entry points, as in the reference:
     ``torch.no_grad()``: the reference has no gradient through its
     kernels either.  With ``use_pallas`` the wkv6, rglru_scan and
     flash-attention CUDA kernels run (their plain versions for CPU
-    tensors);
+    tensors).  MoE layers add the router's aux loss, summed over the
+    layers in fp32 as the reference's scan carry sums it;
   * ``prefill`` — the forward over a prompt that also builds the serving
     cache (KV / ring buffer / recurrent state per layer kind).  It runs
     no kernel, as the reference's collect mode: ``blockwise_attention``
@@ -23,8 +25,10 @@ Three entry points, as in the reference:
     and never replaced) and returns.
 
 The cache trees keep the reference's keys, layer-stacked layouts and
-dtypes, so they compare leaf by leaf.  MoE, ``moe_ep`` and the
-embedding-input / codebook archs wait for later slices.
+dtypes, so they compare leaf by leaf.  ``input_embeds`` archs (musicgen)
+take ``{"embeds": (B, S, d)}`` through ``in_proj`` instead of tokens, and
+their head returns ``n_codebooks`` logits a position, (..., n_codebooks,
+vocab).  ``moe_ep`` (expert parallelism) waits for the mesh slice.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from .attention import (attn_apply, attn_decode, attn_spec, init_kv_cache,
                         quantize_kv_cache)
 from .layers import (P, cross_entropy, ffn_apply, ffn_spec, init_tree,
                      no_policy, rms_norm)
+from .moe import moe_apply, moe_spec
 from .rglru import (init_rglru_cache, rglru_apply, rglru_decode,
                     rglru_spec)
 from .rwkv6 import (init_rwkv_cache, rwkv6_channel_mix, rwkv6_spec,
@@ -52,13 +57,17 @@ LOSS_CHUNK = 512
 # ---------------------------------------------------------------------------
 
 def _attn_layer_spec(cfg, n: int) -> Dict[str, Any]:
-    return {
+    spec = {
         "ln1": P((n, cfg.d_model), ("layers", "embed"), init="ones"),
         "ln2": P((n, cfg.d_model), ("layers", "embed"), init="ones"),
         "attn": attn_spec(cfg, (n,), ("layers",)),
-        "ffn": ffn_spec(cfg.d_model, cfg.d_ff, cfg.activation,
-                        (n,), ("layers",)),
     }
+    if cfg.is_moe:
+        spec["moe"] = moe_spec(cfg, (n,), ("layers",))
+    else:
+        spec["ffn"] = ffn_spec(cfg.d_model, cfg.d_ff, cfg.activation,
+                               (n,), ("layers",))
+    return spec
 
 
 def _rec_layer_spec(cfg, shape_prefix, name_prefix) -> Dict[str, Any]:
@@ -79,24 +88,16 @@ def _rwkv_layer_spec(cfg, n: int) -> Dict[str, Any]:
     }
 
 
-def _unsupported(cfg) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with a later "
-                                  "slice of the port")
-    if cfg.input_embeds or cfg.n_codebooks:
-        raise NotImplementedError(f"{cfg.name}: embedding inputs and "
-                                  "codebook heads come with a later slice "
-                                  "of the port")
-
-
 def model_spec(cfg) -> Dict[str, Any]:
-    _unsupported(cfg)
     d, v = cfg.d_model, cfg.vocab
     spec: Dict[str, Any] = {
         "final_norm": P((d,), ("embed",), init="ones"),
-        "embed": P((v, d), ("vocab", "embed")),
-        "head": P((d, v), ("embed", "vocab")),
     }
+    if cfg.input_embeds:
+        spec["in_proj"] = P((d, d), ("embed", "embed_out"))
+    else:
+        spec["embed"] = P((v, d), ("vocab", "embed"))
+    spec["head"] = P((d, max(cfg.n_codebooks, 1) * v), ("embed", "vocab"))
     if cfg.layer_pattern == "rwkv":
         spec["layers"] = _rwkv_layer_spec(cfg, cfg.n_layers)
     elif cfg.layer_pattern == "griffin":
@@ -155,10 +156,18 @@ def _full_cache_from_kv(k, v, max_seq: int):
     return {"k": ck, "v": cv, "pos": cpos}
 
 
+def _ffn_or_moe(lp, x, cfg):
+    """The block's FFN: (out, aux), aux the router's loss (0.0 if dense)."""
+    if cfg.is_moe:
+        return moe_apply(lp["moe"], x, cfg)
+    return ffn_apply(lp["ffn"], x, cfg.activation), 0.0
+
+
 def _attn_block(lp, x, cfg, positions, window, use_pallas, collect=False,
                 max_seq=0):
-    """Returns (x, cache); cache is {} unless ``collect`` (prefill), which
-    runs ``blockwise_attention`` as the reference's collect mode does."""
+    """Returns (x, aux, cache); cache is {} unless ``collect`` (prefill),
+    which runs ``blockwise_attention`` as the reference's collect mode
+    does."""
     attn_out, (k, v) = attn_apply(
         lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions,
         window=window, use_pallas=use_pallas and not collect)
@@ -169,8 +178,8 @@ def _attn_block(lp, x, cfg, positions, window, use_pallas, collect=False,
     else:
         cache = _full_cache_from_kv(k, v, max_seq)
     h = x + attn_out
-    return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                         cfg.activation), cache
+    f, aux = _ffn_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
+    return h + f, aux, cache
 
 
 def _rec_block(lp, x, cfg, use_pallas, collect=False):
@@ -207,7 +216,6 @@ class Transformer:
     kv_quant: bool = False
 
     def __post_init__(self):
-        _unsupported(self.cfg)
         if self.moe_ep:
             raise NotImplementedError("moe_ep (expert-parallel MoE) comes "
                                       "with the mesh slice of the port")
@@ -229,17 +237,37 @@ class Transformer:
         return init_tree(self.spec(), generator, device, dt)
 
     # ---- forward ---------------------------------------------------------
+    def _embed(self, params, batch):
+        """(B, S, d) inputs: the token embeddings, or ``embeds`` cast to the
+        config's type through ``in_proj`` for ``input_embeds`` archs."""
+        if self.cfg.input_embeds:
+            return batch["embeds"].to(getattr(torch, self.cfg.dtype)) \
+                @ params["in_proj"]
+        return params["embed"][batch["tokens"]]
+
+    def _head(self, params, h):
+        """Logits of final-normed states: (..., vocab), or (...,
+        n_codebooks, vocab) for codebook archs."""
+        logits = h @ params["head"]
+        if self.cfg.n_codebooks:
+            logits = logits.reshape(h.shape[:-1] + (self.cfg.n_codebooks,
+                                                    self.cfg.vocab))
+        return logits
+
     def _backbone(self, params, x, positions, *, collect=False, max_seq=0):
-        """Run all layers.  Returns (hidden, caches); caches is {} unless
-        ``collect``, else the stacked cache tree ``init_cache`` lays out."""
+        """Run all layers.  Returns (hidden, aux, caches): aux is the MoE
+        router loss summed over the layers (0.0 without MoE); caches is {}
+        unless ``collect``, else the stacked cache tree ``init_cache`` lays
+        out."""
         cfg, use_pallas = self.cfg, self.use_pallas
+        aux = 0.0
         if cfg.layer_pattern == "rwkv":
             caches = []
             for i in range(cfg.n_layers):
                 x, c = _rwkv_block(_index(params["layers"], i), x, cfg,
                                    use_pallas, collect)
                 caches.append(c)
-            return x, _stack(caches) if collect else {}
+            return x, aux, _stack(caches) if collect else {}
         if cfg.layer_pattern == "griffin":
             rec, attn, tail = [], [], []
             for i in range(cfg.n_layers // 3):
@@ -249,9 +277,10 @@ class Transformer:
                     x, c = _rec_block(_index(period["rec"], j), x, cfg,
                                       use_pallas, collect)
                     pair.append(c)
-                x, c = _attn_block(period["attn"], x, cfg, positions,
-                                   cfg.local_window, use_pallas, collect,
-                                   max_seq)
+                x, a, c = _attn_block(period["attn"], x, cfg, positions,
+                                      cfg.local_window, use_pallas, collect,
+                                      max_seq)
+                aux = aux + a
                 rec.append(_stack(pair) if collect else {})
                 attn.append(c)
             for i in range(cfg.n_layers % 3):
@@ -259,35 +288,43 @@ class Transformer:
                                   use_pallas, collect)
                 tail.append(c)
             if not collect:
-                return x, {}
+                return x, aux, {}
             caches = {"rec": _stack(rec), "attn": _stack(attn)}
             if tail:
                 caches["tail"] = _stack(tail)
-            return x, caches
+            return x, aux, caches
         caches = []
         for i in range(cfg.n_layers):
-            x, c = _attn_block(_index(params["layers"], i), x, cfg,
-                               positions, 0, use_pallas, collect, max_seq)
+            x, a, c = _attn_block(_index(params["layers"], i), x, cfg,
+                                  positions, 0, use_pallas, collect, max_seq)
+            aux = aux + a
             caches.append(c)
-        return x, _stack(caches) if collect else {}
+        return x, aux, _stack(caches) if collect else {}
+
+    def _forward(self, params, batch):
+        """(final-normed hidden states (B, S, d_model), aux loss)."""
+        x = self._embed(params, batch)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        h, aux, _ = self._backbone(params, x, positions)
+        return rms_norm(h, params["final_norm"], self.cfg.norm_eps), aux
 
     @torch.no_grad()
     def hidden(self, params, batch):
         """The final-normed hidden states (B, S, d_model) of batch's tokens
-        (B, S): what ``loss`` feeds the head."""
-        x = params["embed"][batch["tokens"]]
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        h, _ = self._backbone(params, x, positions)
-        return rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        (B, S) or embeds (B, S, d_model): what ``loss`` feeds the head."""
+        return self._forward(params, batch)[0]
 
     @torch.no_grad()
     def loss(self, params, batch, policy=None):
-        """batch: tokens (B, S) + labels (B, S).  Returns (loss, metrics).
-        The CE is taken over chunks of ``LOSS_CHUNK`` tokens, so
-        (B, S, vocab) logits are never built."""
+        """batch: tokens (B, S) [or embeds (B, S, d)] + labels (B, S) [or
+        (B, S, n_codebooks)].  Returns (loss, metrics): the CE, plus
+        ``router_aux_weight`` x the router loss for MoE.  The CE is taken
+        over chunks of ``LOSS_CHUNK`` tokens, so (B, S, vocab) logits are
+        never built."""
         no_policy(policy)
-        h = self.hidden(params, batch)
+        cfg = self.cfg
+        h, aux = self._forward(params, batch)
         S = h.shape[1]
         labels = batch["labels"]
         n_chunks = max(S // LOSS_CHUNK, 1)
@@ -297,10 +334,11 @@ class Transformer:
         C = S // n_chunks
         total = 0.0
         for c in range(n_chunks):
-            logits = (h[:, c * C:(c + 1) * C] @ params["head"]).float()
+            logits = self._head(params, h[:, c * C:(c + 1) * C]).float()
             total = total + cross_entropy(logits, labels[:, c * C:(c + 1) * C])
         ce = total / n_chunks
-        return ce, {"ce": ce, "aux": 0.0}
+        loss = ce + cfg.router_aux_weight * aux if cfg.is_moe else ce
+        return loss, {"ce": ce, "aux": aux}
 
     # ---- serving ---------------------------------------------------------
     @torch.no_grad()
@@ -317,15 +355,15 @@ class Transformer:
         padded KV entries until decode overwrites them in place."""
         no_policy(policy)
         cfg = self.cfg
-        x = params["embed"][batch["tokens"]]
+        x = self._embed(params, batch)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
-        h, caches = self._backbone(params, x, positions, collect=True,
-                                   max_seq=max_seq)
+        h, _, caches = self._backbone(params, x, positions, collect=True,
+                                      max_seq=max_seq)
         hl = (h[:, -1] if last_pos is None
               else h[torch.arange(B, device=h.device), last_pos])
-        return rms_norm(hl, params["final_norm"], cfg.norm_eps) \
-            @ params["head"], caches
+        return self._head(params, rms_norm(hl, params["final_norm"],
+                                           cfg.norm_eps)), caches
 
     def init_cache(self, batch: int, max_seq: int, dtype=None, device=None):
         """The zero cache of ``batch`` rows.  ``device`` defaults to
@@ -373,12 +411,13 @@ class Transformer:
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch, pos, policy=None):
-        """One token for the whole stack.  batch: tokens (B,); pos: (B,)
-        int32.  Writes the step into ``cache`` in place and returns
-        (logits (B, vocab), cache)."""
+        """One token for the whole stack.  batch: tokens (B,) [or embeds
+        (B, d)]; pos: (B,) int32.  Writes the step into ``cache`` in place
+        and returns (logits (B, vocab), or (B, n_codebooks, vocab) for a
+        codebook arch, and cache)."""
         no_policy(policy)
         cfg = self.cfg
-        x = params["embed"][batch["tokens"][:, None]]
+        x = self._embed(params, {k: v[:, None] for k, v in batch.items()})
 
         def rec_step(lp, x, c):
             o, _ = rglru_decode(lp["rglru"],
@@ -393,9 +432,8 @@ class Transformer:
                                rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, c,
                                pos, window=window)
             h = x + o
-            return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"],
-                                                     cfg.norm_eps),
-                                 cfg.activation)
+            return h + _ffn_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps),
+                                   cfg)[0]
 
         if cfg.layer_pattern == "rwkv":
             for i in range(cfg.n_layers):
@@ -428,4 +466,4 @@ class Transformer:
                 x = attn_step(_index(params["layers"], i), x,
                               _index(cache, i), 0)
         h = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-        return h @ params["head"], cache
+        return self._head(params, h), cache

@@ -40,6 +40,12 @@ shapes.  Each bucket maps onto a persistent ``TuneCache`` entry keyed by
 (cfg, backend fingerprint, bucket dims): the first time a bucket is seen
 across ALL processes it is measured once (blocking), and every later run
 looks it up and stays on the asynchronous path with zero measurements.
+
+An MoE layer's expert capacity is shared by every token of a prefill
+bucket (its padding included) and by every row of a decode step (idle
+rows too), so where capacity drops tokens the engine's tokens can rightly
+differ from a batch-1 decode's; with ``capacity_factor = n_experts /
+top_k`` nothing drops and they are equal.
 """
 from __future__ import annotations
 
@@ -183,12 +189,21 @@ class ServeRuntime:
         are stepped too: a full cache drops their writes past its end (as
         JAX drops an out-of-bounds index), an output row whose cursor is
         at ``gen_cap`` drops its token, and their cache rows are dead until
-        the next admission's insert overwrites them."""
+        the next admission's insert overwrites them.  ``input_embeds``
+        archs step on zero embeds, as the reference's engine does (its
+        frontend is a stub), and every codebook arch samples codebook 0."""
+        C, gen_cap = out_buf.shape
         with self.on_stream(0):
-            logits, _ = self.model.decode_step(self.params, cache,
-                                               {"tokens": tok}, pos)
-            ntok = torch.argmax(logits, dim=-1).to(torch.int32)
-            C, gen_cap = out_buf.shape
+            if self.cfg.input_embeds:
+                step_in = {"embeds": torch.zeros(
+                    (C, self.cfg.d_model), dtype=torch.float32,
+                    device=out_buf.device)}
+            else:
+                step_in = {"tokens": tok}
+            logits, _ = self.model.decode_step(self.params, cache, step_in,
+                                               pos)
+            ntok = torch.argmax(self._first_codebook(logits),
+                                dim=-1).to(torch.int32)
             rows = torch.arange(C, device=out_buf.device)
             drop_rows_set(out_buf, rows, gen_idx, ntok, gen_cap)
             gen_idx.add_((gen_idx < gen_cap).to(gen_idx.dtype))
@@ -203,11 +218,17 @@ class ServeRuntime:
         the device — no host sync at admission), next decode position,
         output cursor."""
         with self.on_stream(0):
-            t0 = torch.argmax(logits[0]).to(torch.int32)
+            t0 = torch.argmax(self._first_codebook(logits[0])).to(
+                torch.int32)
             tok[slot] = t0
             pos[slot] = p0
             out_buf[slot, 0] = t0
             gen_idx[slot] = 1
+
+    def _first_codebook(self, logits):
+        """The logits greedy sampling reads: codebook 0's for codebook
+        archs ((..., n_codebooks, vocab) -> (..., vocab))."""
+        return logits[..., 0, :] if self.cfg.n_codebooks else logits
 
     def park(self, park_buf, out_buf, slot: int, idx: int) -> None:
         """Copy a finished row's tokens into the park buffer on the device
@@ -236,16 +257,21 @@ class ServeRuntime:
 
     @torch.no_grad()
     def _prefill(self, req: Request, padded: int):
-        """Upload the padded prompt and run the prefill, both on stream 1;
-        the cache comes back in the pool's layout."""
+        """Upload the padded prompt (tokens, or fp32 embeds for
+        ``input_embeds`` archs) and run the prefill, both on stream 1; the
+        cache comes back in the pool's layout."""
         L = req.prompt_len
-        buf = np.zeros((1, padded), np.int32)
+        if self.cfg.input_embeds:
+            key, buf = "embeds", np.zeros((1, padded, self.cfg.d_model),
+                                          np.float32)
+        else:
+            key, buf = "tokens", np.zeros((1, padded), np.int32)
         buf[0, :L] = req.prompt
-        tokens = self.be.upload(buf, stream=1)
+        prompt = self.be.upload(buf, stream=1)
         last_pos = self.be.upload(np.asarray([L - 1], np.int32), stream=1)
         with self.on_stream(1):
             logits, cache = self.model.prefill(
-                self.params, {"tokens": tokens}, max_seq=self.max_seq,
+                self.params, {key: prompt}, max_seq=self.max_seq,
                 last_pos=last_pos)
             cache = self.model.quantize_cache(cache)
         return logits, cache
@@ -343,12 +369,13 @@ class Engine:
     # -- run -----------------------------------------------------------------
     def run(self, requests: List[Request], *,
             respect_arrivals: bool = True) -> Dict[str, Any]:
-        rt = self.rt
+        rt, cfg = self.rt, self.rt.cfg
         for r in requests:
-            if r.prompt.ndim != 1:
+            want = 2 if cfg.input_embeds else 1
+            if r.prompt.ndim != want:
                 raise ValueError(
                     f"request {r.rid}: prompt ndim {r.prompt.ndim} for "
-                    f"token arch")
+                    f"{'embeds' if cfg.input_embeds else 'token'} arch")
             if r.total_tokens > rt.max_seq:
                 raise ValueError(
                     f"request {r.rid}: prompt+gen {r.total_tokens} exceeds "

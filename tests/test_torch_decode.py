@@ -20,7 +20,17 @@ while their caches stay within 1e-5.  Decode after
 against itself) within 1e-4 of the logits' scale; int8 decode against the
 float decode within 0.25, as the reference's
 ``test_kv_quant_decode_close_to_fp`` holds them.
+
+Every arch of ``ALL_ARCHS`` runs: musicgen-large takes (B, S, d) embeds
+(and an embed a decode step) and returns (B, 4, vocab) codebook logits;
+the MoE archs route their prefill's B*S tokens under the published
+capacity factor, both packages dropping the same ones, and a decode
+step's B rows.  Decode after ``prefill(S)`` equals ``prefill(S + 1)``
+only where capacity drops nothing, so that test lifts the MoE capacity
+factor to n_experts / top_k (C >= T), as the reference's
+``test_moe_decode_matches_prefill_no_dropping`` does.
 """
+import dataclasses
 import functools
 
 import jax
@@ -32,11 +42,11 @@ import torch
 from repro.configs import get_config as ref_get_config
 from repro.configs import reduced as ref_reduced
 from repro.models import Transformer as RefTransformer
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ALL_ARCHS, get_config, reduced
 from repro_torch.models import Transformer, params_from_numpy
 from repro_torch.serve.kvpool import tree_flatten
 
-ARCHS = ("qwen2.5-14b", "rwkv6-3b", "recurrentgemma-2b")
+ARCHS = tuple(cfg.name for cfg in ALL_ARCHS)
 TOL = 1e-5
 DECODE_LOGITS_TOL = 5e-5
 MAX_SEQ = 48
@@ -74,6 +84,23 @@ def models(name, kv_quant=False):
 def _tokens(shape, seed):
     return np.random.default_rng(seed).integers(0, 257, shape) \
         .astype(np.int32)
+
+
+def _inputs(cfg, shape, seed):
+    """A batch of ``shape`` (B, S) or (B,) positions: tokens, or embeds
+    (..., d_model) for ``input_embeds`` archs."""
+    if cfg.input_embeds:
+        return {"embeds": np.random.default_rng(seed).standard_normal(
+            shape + (cfg.d_model,)).astype(np.float32)}
+    return {"tokens": _tokens(shape, seed)}
+
+
+def _j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _t(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def assert_tree_close(got, want, tol=TOL):
@@ -114,14 +141,16 @@ def test_prefill_matches_reference(name, last_pos):
     """Logits and every cache leaf; S = 40 puts griffin's ring (window 32)
     on its wrapped layout (slot = pos % window)."""
     jm, jp, tm, tp = models(name)
-    toks = _tokens((2, 40), seed=1)
+    batch = _inputs(tm.cfg, (2, 40), seed=1)
     lp = np.array([17, 39], np.int32) if last_pos else None
     want, want_cache = jm.prefill(
-        jp, {"tokens": jnp.asarray(toks)}, max_seq=MAX_SEQ,
+        jp, _j(batch), max_seq=MAX_SEQ,
         last_pos=None if lp is None else jnp.asarray(lp))
     got, got_cache = tm.prefill(
-        tp, {"tokens": torch.from_numpy(toks)}, max_seq=MAX_SEQ,
+        tp, _t(batch), max_seq=MAX_SEQ,
         last_pos=None if lp is None else torch.from_numpy(lp))
+    assert got.shape == (2, tm.cfg.n_codebooks, 257) if tm.cfg.n_codebooks \
+        else got.shape == (2, 257)
     _close(got, want)
     assert_tree_close(got_cache, want_cache)
 
@@ -132,34 +161,41 @@ def test_prefill_matches_reference(name, last_pos):
 def test_decode_steps_match_reference(name, S):
     """Five greedy steps after the prefill: logits and caches each step.
     Griffin from S = 29 writes positions 29..33 into its ring of 32, so
-    the decode side wraps (slot = pos % 32)."""
+    the decode side wraps (slot = pos % 32).  An embeds arch steps on a
+    fresh seeded embed each step."""
     jm, jp, tm, tp = models(name)
-    toks = _tokens((2, S), seed=2)
-    want, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, max_seq=MAX_SEQ)
-    got, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+    want, jc = jm.prefill(jp, _j(_inputs(tm.cfg, (2, S), seed=2)),
+                          max_seq=MAX_SEQ)
+    got, tc = tm.prefill(tp, _t(_inputs(tm.cfg, (2, S), seed=2)),
                          max_seq=MAX_SEQ)
     for i in range(5):
         tok = np.argmax(np.asarray(want), -1).astype(np.int32)
         np.testing.assert_array_equal(got.argmax(-1).numpy(), tok)
         pos = np.full((2,), S + i, np.int32)
-        want, jc = jm.decode_step(jp, jc, {"tokens": jnp.asarray(tok)},
-                                  jnp.asarray(pos))
-        got, tc = tm.decode_step(tp, tc, {"tokens": torch.from_numpy(tok)},
-                                 torch.from_numpy(pos))
+        step = (_inputs(tm.cfg, (2,), seed=10 + i) if tm.cfg.input_embeds
+                else {"tokens": tok})
+        want, jc = jm.decode_step(jp, jc, _j(step), jnp.asarray(pos))
+        got, tc = tm.decode_step(tp, tc, _t(step), torch.from_numpy(pos))
         _close(got, want, DECODE_LOGITS_TOL)
         assert_tree_close(tc, jc)
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_decode_matches_prefill(name):
-    """decode_step after prefill(S) == last logits of prefill(S + 1)."""
+    """decode_step after prefill(S) == last logits of prefill(S + 1)
+    (MoE: with the capacity factor that drops nothing)."""
     _, _, m, params = models(name)
+    if m.cfg.is_moe:
+        m = Transformer(dataclasses.replace(
+            m.cfg, capacity_factor=m.cfg.n_experts / m.cfg.top_k))
     B, S = 2, 24
-    toks = torch.from_numpy(_tokens((B, S + 1), seed=3))
-    _, cache = m.prefill(params, {"tokens": toks[:, :S]}, max_seq=S + 8)
-    ld, _ = m.decode_step(params, cache, {"tokens": toks[:, S]},
+    full = _t(_inputs(m.cfg, (B, S + 1), seed=3))
+    _, cache = m.prefill(params, {k: v[:, :S] for k, v in full.items()},
+                         max_seq=S + 8)
+    ld, _ = m.decode_step(params, cache, {k: v[:, S] for k, v in
+                                          full.items()},
                           torch.full((B,), S, dtype=torch.int32))
-    lf, _ = m.prefill(params, {"tokens": toks}, max_seq=S + 9)
+    lf, _ = m.prefill(params, full, max_seq=S + 9)
     scale = lf.abs().max().item()
     np.testing.assert_allclose(ld.numpy(), lf.numpy(), rtol=1e-4,
                                atol=1e-4 * scale)
@@ -234,6 +270,31 @@ def test_quantize_cache_is_decodes_layout():
     assert (q["k"][0, :, 8].int() - fq["k"][0, :, 8].int()).abs().max() <= 1
     np.testing.assert_allclose(q["k_scale"][0, :, 8].numpy(),
                                fq["k_scale"][0, :, 8].numpy(), rtol=1e-5)
+
+
+def test_codebook_logits_at_the_published_vocab():
+    """musicgen-large's four 2048-way heads at the reduced width: prefill
+    and decode logits are (B, 4, 2048) and the reference's."""
+    name = "musicgen-large"
+    jcfg = dataclasses.replace(ref_reduced(ref_get_config(name)),
+                               vocab=2048)
+    cfg = dataclasses.replace(reduced(get_config(name)), vocab=2048)
+    tree = jax.tree.map(np.asarray, RefTransformer(jcfg).init(
+        jax.random.key(4)))
+    jm, tm = RefTransformer(jcfg), Transformer(cfg)
+    jp, tp = jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
+    assert tp["head"].shape == (cfg.d_model, 4 * 2048)
+    batch = _inputs(cfg, (2, 12), seed=5)
+    want, jc = jm.prefill(jp, _j(batch), max_seq=16)
+    got, tc = tm.prefill(tp, _t(batch), max_seq=16)
+    assert got.shape == (2, 4, 2048)
+    _close(got, want)
+    step = _inputs(cfg, (2,), seed=6)
+    pos = np.full((2,), 12, np.int32)
+    want, _ = jm.decode_step(jp, jc, _j(step), jnp.asarray(pos))
+    got, _ = tm.decode_step(tp, tc, _t(step), torch.from_numpy(pos))
+    assert got.shape == (2, 4, 2048)
+    _close(got, want, DECODE_LOGITS_TOL)
 
 
 def test_init_cache_without_device_needs_a_card():

@@ -193,3 +193,37 @@ class TestTorchBackend:
         assert torch_dtype(torch.float32) is torch.float32
         with pytest.raises(TypeError):
             numpy_dtype(torch.bfloat16)
+
+
+@pytest.mark.parametrize("program", sorted(ref_polybench.PROBLEMS))
+def test_pinned_backend_name_is_torchs(program):
+    """The reference's "pinned" name builds the port's TorchDeviceBackend,
+    whose uploads already stage through pinned memory: on the ten
+    polybench programs, asked for the CPU explicitly, its outputs are
+    "torch"'s bit for bit, and both match the reference's ``jax``
+    backend (never its ``pinned`` one, which fails on jax CPU builds)
+    with the same transfer counts."""
+    from repro_torch.core.backend import _REGISTRY
+    assert _REGISTRY["pinned"] is _REGISTRY["torch"] is TorchDeviceBackend
+    build_ref, build_port = PROGRAMS[program]
+    out_r, s_r = ref_core.execute(ref_core.plan(build_ref()), backend="jax")
+    pp = port_core.plan(build_port())
+    out_t, s_t = port_core.execute(pp, backend=_REGISTRY["torch"]("cpu"))
+    for mode in ("interpreted", "compiled"):
+        out_p, s_p = port_core.execute(pp, mode=mode,
+                                       backend=_REGISTRY["pinned"]("cpu"))
+        assert s_p.transfer_counts() == s_t.transfer_counts() == \
+            s_r.transfer_counts()
+        assert sorted(out_p) == sorted(out_r)
+        for k in out_r:
+            np.testing.assert_array_equal(out_p[k], out_t[k], err_msg=k)
+            _close(out_p[k], out_r[k], k)
+
+
+def test_pinned_backend_needs_a_card():
+    """By name, "pinned" is a card backend: without a card it raises,
+    never falls back to the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the pinned backend runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_core.get_backend("pinned")

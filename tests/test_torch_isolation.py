@@ -27,6 +27,7 @@ leaked = sorted(m for m in sys.modules
                 or m.startswith("repro."))
 assert not leaked, leaked
 assert len(names) >= 20, names
+assert "repro_torch.models.moe" in names, names
 
 import torch
 from repro_torch.configs import get_config, reduced

@@ -9,11 +9,15 @@ engine end to end: on the same seeded trace with the same weights (the
 reference's init, carried across), every request's tokens equal the
 reference ``Engine``'s and the port's own standalone greedy decode, for
 the three reduced archs (padded buckets, exact buckets, gen = 1,
-over-capacity queueing).  Tokens are compared for equality; pooled caches
+over-capacity queueing), and for reduced qwen3-moe-30b-a3b (MoE at the
+published capacity factor: both engines' bucketed prefills and decode
+batches drop the same tokens) and musicgen-large (embeds prompts padded
+to the bucket, zero embeds a decode step, codebook 0 sampled).  Tokens are compared for equality; pooled caches
 with rtol 1e-5 and atol 1e-5 of the leaf's scale (``test_torch_decode``),
 integer leaves equal.  Each test points ``REPRO_TORCH_TUNE_CACHE`` at its
 own ``tmp_path``.
 """
+import dataclasses
 import math
 import sys
 from pathlib import Path
@@ -40,6 +44,7 @@ from repro_torch.serve.kvpool import tree_flatten
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("qwen2.5-14b", "rwkv6-3b", "recurrentgemma-2b")
+ENGINE_ARCHS = ARCHS + ("qwen3-moe-30b-a3b", "musicgen-large")
 MAX_SEQ = 48
 CPU = TorchDeviceBackend("cpu")
 
@@ -53,9 +58,12 @@ def _tokens(L, seed=0):
     return np.random.default_rng(seed).integers(0, 257, (L,)).astype(np.int32)
 
 
-def _req(rid, L=8, gen=4, arrival=0.0, seed=None, cls=Request):
-    return cls(rid=rid, prompt=_tokens(L, seed if seed is not None else rid),
-               max_new_tokens=gen, arrival_s=arrival)
+def _req(rid, L=8, gen=4, arrival=0.0, seed=None, cls=Request, d=0):
+    """A request of an L-token prompt, or of L embeds of width ``d``."""
+    seed = seed if seed is not None else rid
+    prompt = (np.random.default_rng(seed).standard_normal((L, d))
+              .astype(np.float32) if d else _tokens(L, seed))
+    return cls(rid=rid, prompt=prompt, max_new_tokens=gen, arrival_s=arrival)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +330,7 @@ def ref_runtimes():
         out = {name: ref_serve.ServeRuntime(
             ref_reduced(ref_get_config(name)), max_seq=MAX_SEQ,
             params=jax.tree.map(jnp.asarray, numpy_params(name)))
-            for name in ARCHS}
+            for name in ENGINE_ARCHS}
     for rt in out.values():
         rt.tune = None
     return out
@@ -330,47 +338,88 @@ def ref_runtimes():
 
 def standalone_decode(rt, req):
     """Per-request greedy decode straight through the port's model:
-    ``prefill`` at batch 1 with no padding, then ``decode_step``."""
-    model, params = rt.model, rt.params
+    ``prefill`` at batch 1 with no padding, then ``decode_step`` (zero
+    embeds a step for an embeds arch; codebook 0 sampled)."""
+    model, params, cfg = rt.model, rt.params, rt.cfg
+    key = "embeds" if cfg.input_embeds else "tokens"
+
+    def sample(logits):
+        logits = logits[..., 0, :] if cfg.n_codebooks else logits
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
     logits, cache = model.prefill(
-        params, {"tokens": torch.from_numpy(req.prompt[None])},
+        params, {key: torch.from_numpy(req.prompt[None])},
         max_seq=rt.max_seq)
     cache = model.quantize_cache(cache)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    tok = sample(logits)
     out = [int(tok[0])]
     for i in range(req.max_new_tokens - 1):
         pos = torch.full((1,), req.prompt_len + i, dtype=torch.int32)
-        logits, cache = model.decode_step(params, cache, {"tokens": tok}, pos)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step = ({"embeds": torch.zeros((1, cfg.d_model))}
+                if cfg.input_embeds else {"tokens": tok})
+        logits, cache = model.decode_step(params, cache, step, pos)
+        tok = sample(logits)
         out.append(int(tok[0]))
     return np.array(out, np.int32)
 
 
-def _mixed(cls=Request):
+def _mixed(cls=Request, d=0):
     """Lengths across the dense buckets 8, 16 and 32, two gen = 1
-    requests, and more requests than the engine's capacity of 3."""
+    requests, and more requests than the engine's capacity of 3 (token
+    prompts, or embeds of width ``d``)."""
     lens = (5, 8, 11, 16, 7, 9, 24, 3)
     gens = (4, 6, 1, 5, 3, 6, 2, 1)
-    return [_req(r, L=L, gen=g, cls=cls)
+    return [_req(r, L=L, gen=g, cls=cls, d=d)
             for r, (L, g) in enumerate(zip(lens, gens))]
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ENGINE_ARCHS)
 def test_engine_tokens_equal_reference_engine(name, ref_runtimes):
     """Same trace, same weights: every request's tokens are the
-    reference Engine's, and the port's standalone greedy decode's."""
+    reference Engine's, and the port's standalone greedy decode's (for
+    MoE, where capacity drops nothing: an unpadded prefill and a batch
+    of one keep every token the engine's padded bucket or full batch
+    may drop, so its tokens equal the standalone decode's only there)."""
     rt = _runtime(name)
+    d = rt.cfg.d_model if rt.cfg.input_embeds else 0
     got = Engine(rt, capacity=3)
-    rep = got.run(_mixed(), respect_arrivals=False)
+    rep = got.run(_mixed(d=d), respect_arrivals=False)
     want = ref_serve.Engine(ref_runtimes[name], capacity=3)
-    want.run(_mixed(ref_serve.Request), respect_arrivals=False)
+    want.run(_mixed(ref_serve.Request, d=d), respect_arrivals=False)
     assert rep["n_requests"] == 8 and rep["queue"]["peak_depth"] >= 5
     ref_tokens = {r.rid: r.tokens for r in want.completed}
     for r in got.completed:
         np.testing.assert_array_equal(r.tokens, ref_tokens[r.rid],
                                       err_msg=f"rid={r.rid}")
+        if not rt.cfg.is_moe:
+            np.testing.assert_array_equal(r.tokens, standalone_decode(rt, r),
+                                          err_msg=f"rid={r.rid} standalone")
+
+
+def test_moe_engine_without_drops_equals_standalone_decode():
+    """With capacity_factor = n_experts / top_k no bucket or batch drops a
+    token (C >= T), so the MoE engine's tokens equal each request's
+    standalone decode, as the card's fp32 exactness run holds them."""
+    cfg = reduced(get_config("qwen3-moe-30b-a3b"))
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    rt = ServeRuntime(cfg, max_seq=MAX_SEQ, backend=CPU, params=_runtime(
+        "qwen3-moe-30b-a3b").params)
+    rt.tune = None
+    eng = Engine(rt, capacity=3)
+    eng.run(_mixed(), respect_arrivals=False)
+    assert len(eng.completed) == 8
+    for r in eng.completed:
         np.testing.assert_array_equal(r.tokens, standalone_decode(rt, r),
-                                      err_msg=f"rid={r.rid} standalone")
+                                      err_msg=f"rid={r.rid}")
+
+
+def test_prompt_rank_must_match_the_arch():
+    """Token prompts on an embeds arch, or embeds on a token arch, are
+    refused before anything runs, as the reference's engine refuses
+    them."""
+    for name, d in (("musicgen-large", 0), ("qwen2.5-14b", 64)):
+        with pytest.raises(ValueError, match="prompt ndim"):
+            Engine(_runtime(name), capacity=2).run([_req(0, d=d)])
 
 
 @pytest.mark.parametrize("name", ["qwen2.5-14b", "recurrentgemma-2b"])
@@ -574,6 +623,17 @@ class TestBucketTuneCache:
 # ---------------------------------------------------------------------------
 
 class TestServeOneShot:
+    @pytest.mark.parametrize("name", ["musicgen-large", "arctic-480b"])
+    def test_embeds_and_moe_archs(self, name):
+        """One-shot serving of the embeds/codebook arch and the MoE arch
+        with its dense branch: one greedy token a request a step."""
+        from repro_torch.launch.serve import serve
+        out = serve(reduced(get_config(name)), batch=2, prompt_len=6,
+                    gen=3, device="cpu")
+        assert out["generated"].shape == (2, 3)
+        assert out["generated"].dtype == np.int32
+        assert out["decode_tok_s"] > 0.0
+
     def test_gen1_reports_sane_metrics(self):
         from repro_torch.launch.serve import serve
         out = serve(reduced(get_config("rwkv6-3b")), batch=2, prompt_len=4,
@@ -601,6 +661,17 @@ def test_main_engine_on_cpu(capsys):
     assert "[serve.engine] 6 requests" in capsys.readouterr().out
 
 
+def test_main_engine_embeds_arch_on_cpu(capsys):
+    """``launch.serve --engine`` on musicgen-large: the trace's prompts
+    are embeds, every request finishes."""
+    from repro_torch.launch.serve import main
+    rep = main(["--arch", "musicgen-large", "--reduced", "--engine",
+                "--backend", "cpu", "--n-requests", "6", "--capacity", "2",
+                "--rate", "1e6"])
+    assert rep["n_requests"] == 6 and rep["pool"]["in_use"] == 0
+    assert "[serve.engine] 6 requests" in capsys.readouterr().out
+
+
 def test_port_serve_bench_quick_invariants(tmp_path):
     """Both modes finish everything, p99 finite, zero leaks, the warm run
     measures nothing (no speedup gate at this size)."""
@@ -619,6 +690,22 @@ def test_port_serve_bench_quick_invariants(tmp_path):
     assert math.isfinite(row["continuous"]["latency_p99_s"])
     assert math.isfinite(row["static"]["latency_p99_s"])
     assert out.exists()
+
+
+def test_port_serve_bench_embeds_arch(tmp_path):
+    """The bench's warm-up builds embeds prompts for an ``input_embeds``
+    arch, as the reference's does: musicgen-large runs both modes."""
+    sys.path.insert(0, str(ROOT / "benchmarks"))
+    try:
+        import port_serve_bench
+    finally:
+        sys.path.pop(0)
+    rows = port_serve_bench.main(["--quick", "--backend", "cpu", "--arch",
+                                  "musicgen-large", "--n-requests", "6",
+                                  "--max-seq", "32", "--out",
+                                  str(tmp_path / "bench.json")])
+    assert rows[0]["warm_tune_measurements"] == 0
+    assert rows[0]["pool"]["in_use"] == 0
 
 
 @pytest.mark.parametrize("entry", ["runtime", "main"])
