@@ -80,10 +80,25 @@ Drives the port's main path through its public entry points and checks it:
    must measure nothing, and the decode step is timed (CUDA events) and
    profiled.  No kernel counter may move in the phase: the reference's
    serving path launches no Pallas kernel;
-8. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
+8. train: qwen2.5-14b at full width (d 5120, 40 query and 8 KV heads, D
+   128, vocab 152064), B = 1, S = 4096, batches from ``SyntheticLM``, the
+   port's seeded weights: (a) fp32, 2 of 48 layers, TF32 off,
+   ``build_cell``'s train function with kernels (flash's SIMT route, run
+   in the forward and again in each layer's recompute) against the plain
+   path: the loss within 1e-4 relative, every gradient leaf within 1e-3
+   normwise, two SIMT launches per layer a step; (b) bf16, 4 of 48
+   layers, flash's sm90 route, AdamW, ``PrefetchIterator``: one warm
+   step, three timed with CUDA events (median step ms, tokens/s, peak
+   memory), one under torch.profiler (busy share; flash's forward, its
+   blockwise backward, the other GEMMs, the optimizer update), eight sm90
+   launches a step, finite losses; (c) bf16, 2 of 48 layers, two steps of
+   ``offloaded_optimizer(adamw())`` against ``adamw()`` from the same
+   start: params bitwise equal, the state in pinned host memory, each
+   run's device peak, the host's MemTotal;
+9. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
    activations, fp32 and bf16, with its launch count read around it (no
    model calls rmsnorm, as in the reference);
-9. tuner: the plan-space tuner (``tune``, what ``plan(p, policy="auto")``
+10. tuner: the plan-space tuner (``tune``, what ``plan(p, policy="auto")``
    calls) on ``TorchDeviceBackend("cuda")`` with a fresh ``TuneCache``:
    (a) 3mm at n = 2048 and (b) attn_step at qwen2.5-14b's attention width
    (2 steps, fp32, flash's SIMT route) measured, each winner executed with
@@ -99,9 +114,9 @@ Drives the port's main path through its public entry points and checks it:
    TF32 must be as the phase found it.
 
 Each kernel's ``launches`` in the kernels line sums the paths that ran it:
-attn_step, model_forward and tuner for flash's SIMT route
-(``flash_attention``), model_forward (the zoo's runs included) for its
-sm90 route (``flash_attention_sm90``), wkv6 and
+attn_step, model_forward, train (a) and tuner for flash's SIMT route
+(``flash_attention``), model_forward (the zoo's runs included) and train
+(b) for its sm90 route (``flash_attention_sm90``), wkv6 and
 rglru_scan, rmsnorm_path for rmsnorm; comparison launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
@@ -145,6 +160,18 @@ FORWARD_RTOL = 1e-4
 # itself sits about 0.7 normwise from its fp32 counterpart (PERF.md).  The
 # norm measures the kernel, not that amplification
 FORWARD_BF16_TOL = 5e-2
+
+# train (a): fp32, kernels against the plain path from the same weights:
+# the loss relative, each gradient leaf normwise (||Δ|| / ||plain||)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+# train: qwen2.5-14b at full width, B = 1, S = 4096, cut to these depths
+# (its params, gradients and fp32 AdamW state fit one 80 GB card)
+TRAIN_MODEL = "qwen2.5-14b"
+TRAIN_SEQ = 4096
+TRAIN_CUT_LAYERS = 2        # (a) fp32 kernel vs plain; (c) offload, bf16
+TRAIN_TIMED_LAYERS = 4      # (b) bf16, timed and profiled
+TRAIN_TIMED_STEPS = 3       # (b) after one warm step
 
 # time_ms's spin before each timed call: about a millisecond of SM cycles
 HOLD_CYCLES = 2_000_000
@@ -1179,11 +1206,15 @@ def _device_rows(prof):
     """A profile's device-side rows, largest first, and their sum (see
     ``_profile``)."""
     from torch.autograd import DeviceType
+    from repro_torch.kernels.ops import BACKWARD_RANGE
+    from repro_torch.optim.adamw import UPDATE_RANGE
     rows = []
     for e in prof.key_averages():
         # device-side events only: a CPU op also reports its kernels'
-        # time, which would count each kernel twice
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        # time, which would count each kernel twice; and kernels only:
+        # the port's profiler ranges show on the device's timeline too
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0 \
+                and e.key not in (BACKWARD_RANGE, UPDATE_RANGE):
             rows.append([e.key[:90], e.self_device_time_total / 1e3,
                          e.count])
     if not rows:
@@ -1506,6 +1537,348 @@ def phase_serve(smi: str) -> None:
            exact_seconds=t_exact, launches_unchanged=after, card=smi)
 
 
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+def _train_batch(cfg, index: int, seed: int = 0) -> dict:
+    """SyntheticLM's batch ``index`` (B = 1, S = TRAIN_SEQ) on the card."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    src = SyntheticLM(cfg, 1, TRAIN_SEQ, seed=seed)
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in src.batch_at(index).items()}
+
+
+def _train_kernel_vs_plain(smi: str) -> dict:
+    """train (a): qwen2.5-14b at full width, TRAIN_CUT_LAYERS deep, fp32
+    (TF32 off): ``build_cell``'s train function with kernels (flash's SIMT
+    route) against the plain path from the same weights and batch, the
+    loss at TRAIN_LOSS_RTOL, then every gradient leaf at TRAIN_GRAD_TOL
+    (``steps.value_and_grad``, a comparison: its launches are not
+    counted).  Returns the launches of the cell's run with kernels."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.optim import default_optimizer
+    from repro_torch.tree import leaves
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    shape = ShapeSpec("train_cut", "train", TRAIN_SEQ, 1)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = Transformer(cfg).init(gen)
+    _perturb_constants(params, gen)
+    batch = _train_batch(cfg, 0)
+    losses, counts = {}, None
+    for use_pallas in (True, False):
+        cell = steps.build_cell(cfg, shape, use_pallas=use_pallas)
+        p = _clone_tree(params)
+        state = default_optimizer(cfg).init(p)
+        before = _launch_counts()
+        if use_pallas:
+            _set_launch_counts(dict.fromkeys(_counters(), 0))  # run starts
+        _, _, metrics = cell.fn(p, state, batch)
+        losses[use_pallas] = float(metrics["loss"])
+        if use_pallas:
+            counts = _launch_counts()                          # ... ends
+            _set_launch_counts(before)
+        else:
+            check(_launch_counts() == before,
+                  "train (a): the plain path launched a kernel")
+        del p, state, metrics, cell
+        torch.cuda.empty_cache()
+    n_attn = cfg.layer_kinds().count("attn")
+    want = {**dict.fromkeys(_counters(), 0), "flash_attention": 2 * n_attn}
+    check(counts == want, f"train (a): launches {counts}, want {want} (the "
+          "forward and the per-layer recompute)")
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    check(math.isfinite(losses[True]) and rel <= TRAIN_LOSS_RTOL,
+          f"train (a): loss with kernels {losses[True]} vs plain "
+          f"{losses[False]}: rel err {rel} > {TRAIN_LOSS_RTOL}")
+    # the gradients, kernels against plain (comparisons, not counted)
+    before = _launch_counts()
+    grads = {}
+    for use_pallas in (True, False):
+        _, _, g = steps.value_and_grad(
+            Transformer(cfg, use_pallas=use_pallas), params, batch)
+        grads[use_pallas] = leaves(g)
+        del g
+    _set_launch_counts(before)
+    errs = [((a - b).norm() / b.norm()).item()
+            for a, b in zip(grads[True], grads[False])]
+    check(all(math.isfinite(e) and e <= TRAIN_GRAD_TOL for e in errs),
+          f"train (a): gradient leaves with kernels vs plain: normwise "
+          f"errs up to {max(errs)} > {TRAIN_GRAD_TOL}")
+    report("train", run="fp32_kernel_vs_plain", model=TRAIN_MODEL,
+           n_layers=TRAIN_CUT_LAYERS, batch=1, seq=TRAIN_SEQ,
+           params=sum(_leaf_sizes(params)), loss_kernels=losses[True],
+           loss_plain=losses[False], loss_rel_err=rel,
+           loss_tol=TRAIN_LOSS_RTOL, grad_leaves=len(errs),
+           grad_rel_err_max=max(errs), grad_tol=TRAIN_GRAD_TOL,
+           launches=counts, seconds=time.perf_counter() - t_run, card=smi)
+    del params, grads, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_breakdown(prof) -> dict:
+    """A profiled train step's device time by part, as {part: [ms,
+    calls]}: flash's sm90 forward kernel by name (the forward and the
+    recompute), flash's backward (the ``blockwise_attention`` recompute
+    and its gradient: everything under ``ops.BACKWARD_RANGE``), the
+    optimizer update (under ``adamw.UPDATE_RANGE``), the other GEMMs
+    (``mm``, ``addmm``, ``bmm`` outside those two ranges), and the rest
+    of the device's busy time; with the largest kernels."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels.ops import BACKWARD_RANGE
+    from repro_torch.optim.adamw import UPDATE_RANGE
+
+    def under(e, name):
+        while e is not None:
+            if e.name == name:
+                return True
+            e = e.cpu_parent
+        return False
+
+    parts = {"flash_backward": [0.0, 0], "optimizer_update": [0.0, 0],
+             "other_gemm": [0.0, 0]}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name == BACKWARD_RANGE:
+            part, ms = "flash_backward", e.device_time_total
+        elif e.name == UPDATE_RANGE:
+            part, ms = "optimizer_update", e.device_time_total
+        elif e.name in ("aten::mm", "aten::addmm", "aten::bmm") and not (
+                under(e, BACKWARD_RANGE) or under(e, UPDATE_RANGE)):
+            part, ms = "other_gemm", e.self_device_time_total
+        else:
+            continue
+        parts[part][0] += ms / 1e3
+        parts[part][1] += 1
+    rows, busy_ms = _device_rows(prof)
+    flash = [r for r in rows or () if "flash_fwd_sm90_kernel<" in r[0]]
+    parts["flash_forward_sm90"] = [sum(r[1] for r in flash),
+                                   sum(r[2] for r in flash)]
+    parts["rest"] = None if busy_ms is None else busy_ms - sum(
+        v[0] for v in parts.values() if isinstance(v, list))
+    parts["device_busy_ms"] = busy_ms
+    parts["top8_device_ms"] = None if rows is None else rows[:8]
+    return parts
+
+
+def _train_timed(smi: str, peaks: dict) -> dict:
+    """train (b): qwen2.5-14b at full width, TRAIN_TIMED_LAYERS deep, bf16,
+    flash's sm90 route, AdamW, batches from ``PrefetchIterator`` over
+    ``SyntheticLM``: one warm step, TRAIN_TIMED_STEPS timed with CUDA
+    events, one more under torch.profiler.  Returns the launches of all
+    five steps (the main path)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PrefetchIterator, SyntheticLM
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_TIMED_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(1)
+    params = Transformer(cfg).init(gen, dtype=torch.bfloat16)
+    n_params = sum(_leaf_sizes(params))
+    opt = adamw()
+    state = opt.init(params)
+    step = make_train_step(Transformer(cfg, use_pallas=True), opt)
+    it = PrefetchIterator(SyntheticLM(cfg, 1, TRAIN_SEQ, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _set_launch_counts(dict.fromkeys(_counters(), 0))       # run starts
+    losses, times = [], []
+    try:
+        params, state, m = step(params, state, next(it))    # warm
+        losses.append(m["loss"])
+        for _ in range(TRAIN_TIMED_STEPS):
+            batch = next(it)
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            params, state, m = step(params, state, batch)
+            e1.record()
+            losses.append(m["loss"])
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        batch = next(it)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+        losses.append(m["loss"])
+    finally:
+        it.close()
+    counts = _launch_counts()                               # ... ends
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = TRAIN_TIMED_STEPS + 2
+    want = {**dict.fromkeys(_counters(), 0),
+            "flash_attention_sm90": 2 * TRAIN_TIMED_LAYERS * n_steps}
+    check(counts == want, f"train (b): launches {counts}, want {want}")
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"train (b): losses {losses}")
+    parts = _train_breakdown(prof)
+    check(parts["flash_forward_sm90"][1] == 2 * TRAIN_TIMED_LAYERS,
+          f"train (b) profile: {parts['flash_forward_sm90'][1]} sm90 flash "
+          f"launches in a step, want {2 * TRAIN_TIMED_LAYERS}")
+    step_ms = sorted(times)[len(times) // 2]
+    # the card's least time for the step: GEMM FLOPs 6·N·T over the
+    # matmul params (the embedding is a gather) plus the per-layer
+    # recompute's 2·N_layers·T, attention's causal pairs (forward, its
+    # recompute, and the backward's recompute and gradient: 5 forwards'
+    # worth), over the bf16 peak; AdamW's bytes (p, g read; m, v read and
+    # written, p written) over the memory rate
+    n_layer = (n_params - cfg.vocab * cfg.d_model * 2 - cfg.d_model) \
+        // TRAIN_TIMED_LAYERS
+    n_matmul = n_params - cfg.vocab * cfg.d_model
+    T = TRAIN_SEQ
+    attn = 2.0 * T * T * cfg.d_head * cfg.n_heads * TRAIN_TIMED_LAYERS
+    flops = 6.0 * n_matmul * T + 2.0 * n_layer * TRAIN_TIMED_LAYERS * T \
+        + 5 * attn
+    opt_bytes = n_params * (2 + 2 + 4 * 4 + 2)
+    bound_ms = flops / peaks["bf16"] * 1e3 + opt_bytes / peaks["bytes"] * 1e3
+    busy = parts["device_busy_ms"]
+    report("train", run="bf16_timed", model=TRAIN_MODEL,
+           n_layers=TRAIN_TIMED_LAYERS, batch=1, seq=T, params=n_params,
+           optimizer=opt.name, step_ms=step_ms, step_ms_all=times,
+           tokens_per_s=T / step_ms * 1e3, peak_mem_gb=peak_gb,
+           device_busy_ms=busy,
+           device_busy_share=None if busy is None else busy / step_ms,
+           breakdown_ms=parts, losses=losses, losses_finite=True,
+           launches=counts,
+           sm90_launches_per_step=counts["flash_attention_sm90"] / n_steps,
+           bound_ms=bound_ms, bound_flops=flops, bound_opt_bytes=opt_bytes,
+           seconds=time.perf_counter() - t_run, card=smi)
+    del params, state, m, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _train_offload(smi: str) -> None:
+    """train (c): qwen2.5-14b at full width, TRAIN_CUT_LAYERS deep, bf16
+    (plain path: no kernel), two steps of ``offloaded_optimizer(adamw())``
+    against ``adamw()`` from the same start and batches: the params
+    bitwise equal, the offloaded state in pinned host memory, each run's
+    device peak over what was resident before its ``init`` (so the
+    state on the card counts)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw, offloaded_optimizer
+    from repro_torch.tree import leaves
+
+    t_run = time.perf_counter()
+    meminfo = Path("/proc/meminfo").read_text().splitlines()
+    mem_total = next(line for line in meminfo if line.startswith("MemTotal"))
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_CUT_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(2)
+    start = Transformer(cfg).init(gen, dtype=torch.bfloat16)
+    batches = [_train_batch(cfg, i, seed=1) for i in range(2)]
+    model = Transformer(cfg)
+    before = _launch_counts()
+    runs = {}
+    for opt in (adamw(), offloaded_optimizer(adamw())):
+        params = _clone_tree(start)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        step = make_train_step(model, opt)
+        times = []
+        for b in batches:
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            params, state, _ = step(params, state, b)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        arrays = [x for x in leaves(state) if x.ndim]
+        runs[opt.name] = dict(
+            params=params, init_s=init_s, step_ms=times,
+            resident_before_gb=base / 1e9,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            peak_over_resident_gb=(torch.cuda.max_memory_allocated()
+                                   - base) / 1e9,
+            state_gb=sum(x.numel() * x.element_size() for x in arrays) / 1e9,
+            state_pinned=all(x.device.type == "cpu" and x.is_pinned()
+                             for x in arrays),
+            state_on_card=all(x.is_cuda for x in arrays))
+        del state, step, arrays
+        torch.cuda.empty_cache()
+    check(_launch_counts() == before, "train (c) launched a kernel")
+    plain, off = runs["adamw"], runs["adamw+offload"]
+    check(plain["state_on_card"] and off["state_pinned"],
+          "train (c): want the plain state on the card and the offloaded "
+          "state in pinned host memory")
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(leaves(plain.pop("params")), leaves(off.pop("params"))))
+    check(bitwise, "train (c): offloaded params differ from the plain "
+          "optimizer's")
+    drop = plain["peak_over_resident_gb"] - off["peak_over_resident_gb"]
+    check(drop > 0, f"train (c): the offloaded peak is not lower ({drop} "
+          "GB)")
+    report("train", run="bf16_offload", model=TRAIN_MODEL,
+           n_layers=TRAIN_CUT_LAYERS, batch=1, seq=TRAIN_SEQ,
+           params=sum(_leaf_sizes(start)), params_bitwise_equal=bitwise,
+           plain=plain, offload=off, peak_drop_gb=drop,
+           host_mem_total=mem_total, seconds=time.perf_counter() - t_run,
+           card=smi)
+    del start, batches
+    torch.cuda.empty_cache()
+
+
+def phase_train(smi: str, peaks: dict) -> dict:
+    """Training (module docstring, 8): (a) kernel vs plain, fp32; (b)
+    timed, bf16; (c) offloaded optimizer.  TF32 off for (a), as the
+    phase found it after.  Returns the launches of (a) and (b)."""
+    import torch
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        counts = _train_kernel_vs_plain(smi)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    timed = _train_timed(smi, peaks)
+    _train_offload(smi)
+    report("train", run="all", seconds=time.perf_counter() - t_phase,
+           card=smi)
+    return {k: counts[k] + timed[k] for k in counts}
+
+
 def phase_rmsnorm_path() -> int:
     """rmsnorm's entry point, ops.rmsnorm, on (1, 4096, 2560) activations
     in fp32 and bf16 with its default tile: the reference's only way to
@@ -1727,6 +2100,8 @@ def main() -> int:
             launches[kernel] += n
     report("model_forward", run="zoo_all", seconds=time.perf_counter() - t)
     phase_serve(smi)
+    for kernel, n in phase_train(smi, peaks).items():
+        launches[kernel] += n
     launches["rmsnorm"] = phase_rmsnorm_path()
     launches["flash_attention"] += phase_tuner()
     for name in rows:

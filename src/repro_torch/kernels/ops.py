@@ -17,7 +17,10 @@ from . import rmsnorm as _rn
 from . import wkv6 as _wkv
 
 __all__ = ["flash_attention", "fold_attention", "rglru_scan", "wkv6",
-           "rmsnorm"]
+           "rmsnorm", "BACKWARD_RANGE"]
+
+# the profiler range flash's backward (the blockwise recompute) runs in
+BACKWARD_RANGE = "flash_attention.backward"
 
 
 def fold_attention(q, k, v):
@@ -52,7 +55,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         from ..models.attention import blockwise_attention
         q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                BACKWARD_RANGE):
             o = blockwise_attention(q, k, v, causal=ctx.causal,
                                     window=ctx.window)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
@@ -73,15 +77,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
 
 
+def _no_backward(kernel: str, *inputs) -> None:
+    """Raise where autograd would record through a kernel that has no
+    backward: its output would carry no gradient to its inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"{kernel}: the kernel has no backward, and the reference has "
+            "none either (jax.grad through its Pallas kernel raises); "
+            "train with use_pallas=False")
+
+
 def rglru_scan(a, b, *, block_t: int = 256):
-    """a, b: (B, T, D) → h (B, T, D) fp32."""
+    """a, b: (B, T, D) → h (B, T, D) fp32.  Forward only: raises under
+    grad (``_no_backward``)."""
+    _no_backward("rglru_scan", a, b)
     return _rg.rglru_scan(a, b, block_t=block_t)
 
 
 def wkv6(r, k, v, w, u, *, block_t: int = 64):
     """r, k, v, w: (B, T, H, hs); u: (H, hs).
     Returns (o (B, T, H, hs) fp32, state (B, H, hs, hs) fp32).  w goes to
-    the kernel in fp32, the type the kernel computes it in."""
+    the kernel in fp32, the type the kernel computes it in.  Forward only:
+    raises under grad (``_no_backward``)."""
+    _no_backward("wkv6", r, k, v, w, u)
     B, T, H, hs = r.shape
 
     def fold(t):

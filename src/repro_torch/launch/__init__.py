@@ -1,1 +1,2 @@
-"""Launchers: the serving entry point (``launch.serve``)."""
+"""Launchers: the step builders (``launch.steps``) and the train and
+serve drivers (``launch.train``, ``launch.serve``)."""

@@ -51,11 +51,14 @@ def _sync(dev: torch.device) -> None:
 
 @torch.no_grad()
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
-          device=None):
+          device=None, params=None):
+    """``params`` (e.g. a training run's) on ``device``, else the seeded
+    init."""
     dev = _device(device)
     model = Transformer(cfg)
-    params = model.init(torch.Generator(dev).manual_seed(seed),
-                        device=dev)                       # resident
+    if params is None:
+        params = model.init(torch.Generator(dev).manual_seed(seed),
+                            device=dev)                   # resident
     rng = np.random.default_rng(seed)
     max_seq = prompt_len + gen
     if cfg.input_embeds:

@@ -10,12 +10,19 @@ periods and 2 tail layers), so weights carry across unchanged
 (``models.convert.params_from_numpy``).
 
 Three entry points, as in the reference:
-  * ``loss`` (and ``hidden``) — the forward only, under
-    ``torch.no_grad()``: the reference has no gradient through its
-    kernels either.  With ``use_pallas`` the wkv6, rglru_scan and
-    flash-attention CUDA kernels run (their plain versions for CPU
-    tensors).  MoE layers add the router's aux loss, summed over the
-    layers in fp32 as the reference's scan carry sums it;
+  * ``loss`` — differentiable, as the reference's, which
+    ``jax.value_and_grad`` trains on.  When autograd records (grad
+    enabled and a param that requires grad), each layer runs under
+    ``torch.utils.checkpoint`` — griffin's per period of (R, R, A) and
+    per tail layer — so the backward recomputes it, as the reference's
+    per-layer ``jax.checkpoint`` does; params that require no grad build
+    no graph.  With ``use_pallas`` the wkv6, rglru_scan and flash-attention
+    CUDA kernels run (their plain versions for CPU tensors): flash has a
+    backward (``kernels/ops.py``), wkv6 and rglru_scan raise under grad,
+    as the reference's ``jax.grad`` does.  MoE layers add the router's
+    aux loss, summed over the layers in fp32 as the reference's scan
+    carry sums it.  ``hidden`` is the forward only, under
+    ``torch.no_grad()``;
   * ``prefill`` — the forward over a prompt that also builds the serving
     cache (KV / ring buffer / recurrent state per layer kind).  It runs
     no kernel, as the reference's collect mode: ``blockwise_attention``
@@ -36,7 +43,10 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..tree import leaves
 from .attention import (attn_apply, attn_decode, attn_spec, init_kv_cache,
                         quantize_kv_cache)
 from .layers import (P, cross_entropy, ffn_apply, ffn_spec, init_tree,
@@ -121,6 +131,16 @@ def _index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer i of a tree of stacked params (a view, no copy)."""
     return {k: _index(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _layers(tree: Dict[str, Any], n: int):
+    """The n per-layer trees of a tree of stacked params: views from one
+    ``unbind`` per leaf, whose backward stacks the layers' gradients once
+    (indexing layer by layer would give each layer a zero gradient of the
+    whole stack to add up)."""
+    per_leaf = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+    return [{k: per_leaf[k][i] for k in tree} for i in range(n)]
 
 
 def _stack(caches):
@@ -236,6 +256,11 @@ class Transformer:
         dt = dtype or getattr(torch, self.cfg.dtype)
         return init_tree(self.spec(), generator, device, dt)
 
+    def abstract_params(self, dtype=None):
+        """The params as ``meta`` tensors: shapes and types, no storage."""
+        dt = dtype or getattr(torch, self.cfg.dtype)
+        return init_tree(self.spec(), None, "meta", dt)
+
     # ---- forward ---------------------------------------------------------
     def _embed(self, params, batch):
         """(B, S, d) inputs: the token embeddings, or ``embeds`` cast to the
@@ -243,7 +268,11 @@ class Transformer:
         if self.cfg.input_embeds:
             return batch["embeds"].to(getattr(torch, self.cfg.dtype)) \
                 @ params["in_proj"]
-        return params["embed"][batch["tokens"]]
+        # F.embedding, not indexing: its backward sums a token's rows in
+        # a fixed order on the CPU and the card, where indexing's
+        # accumulating scatter adds them in parallel, in any order, and
+        # a resumed run would not be bitwise the straight one
+        return F.embedding(batch["tokens"], params["embed"])
 
     def _head(self, params, h):
         """Logits of final-normed states: (..., vocab), or (...,
@@ -258,34 +287,50 @@ class Transformer:
         """Run all layers.  Returns (hidden, aux, caches): aux is the MoE
         router loss summed over the layers (0.0 without MoE); caches is {}
         unless ``collect``, else the stacked cache tree ``init_cache`` lays
-        out."""
+        out.  When autograd records, each ``jax.checkpoint`` body of the
+        reference (a layer; griffin's period and tail layer) runs under
+        ``torch.utils.checkpoint``."""
         cfg, use_pallas = self.cfg, self.use_pallas
+        remat = torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves(params))
+
+        def run(body, *args):
+            if not remat:
+                return body(*args)
+            return checkpoint(body, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+
         aux = 0.0
         if cfg.layer_pattern == "rwkv":
             caches = []
-            for i in range(cfg.n_layers):
-                x, c = _rwkv_block(_index(params["layers"], i), x, cfg,
-                                   use_pallas, collect)
+            for lp in _layers(params["layers"], cfg.n_layers):
+                x, c = run(lambda x, lp=lp: _rwkv_block(lp, x, cfg,
+                                                        use_pallas, collect),
+                           x)
                 caches.append(c)
             return x, aux, _stack(caches) if collect else {}
         if cfg.layer_pattern == "griffin":
-            rec, attn, tail = [], [], []
-            for i in range(cfg.n_layers // 3):
-                period = _index(params["periods"], i)
+            def period_body(x, period):
                 pair = []
-                for j in range(2):
-                    x, c = _rec_block(_index(period["rec"], j), x, cfg,
-                                      use_pallas, collect)
+                for lp in _layers(period["rec"], 2):
+                    x, c = _rec_block(lp, x, cfg, use_pallas, collect)
                     pair.append(c)
                 x, a, c = _attn_block(period["attn"], x, cfg, positions,
                                       cfg.local_window, use_pallas, collect,
                                       max_seq)
+                return x, a, (_stack(pair) if collect else {}), c
+
+            rec, attn, tail = [], [], []
+            for period in _layers(params["periods"], cfg.n_layers // 3):
+                x, a, rc, ac = run(lambda x, p=period: period_body(x, p), x)
                 aux = aux + a
-                rec.append(_stack(pair) if collect else {})
-                attn.append(c)
-            for i in range(cfg.n_layers % 3):
-                x, c = _rec_block(_index(params["tail"], i), x, cfg,
-                                  use_pallas, collect)
+                rec.append(rc)
+                attn.append(ac)
+            n_tail = cfg.n_layers % 3
+            for lp in _layers(params["tail"], n_tail) if n_tail else ():
+                x, c = run(lambda x, lp=lp: _rec_block(lp, x, cfg,
+                                                       use_pallas, collect),
+                           x)
                 tail.append(c)
             if not collect:
                 return x, aux, {}
@@ -294,9 +339,9 @@ class Transformer:
                 caches["tail"] = _stack(tail)
             return x, aux, caches
         caches = []
-        for i in range(cfg.n_layers):
-            x, a, c = _attn_block(_index(params["layers"], i), x, cfg,
-                                  positions, 0, use_pallas, collect, max_seq)
+        for lp in _layers(params["layers"], cfg.n_layers):
+            x, a, c = run(lambda x, lp=lp: _attn_block(
+                lp, x, cfg, positions, 0, use_pallas, collect, max_seq), x)
             aux = aux + a
             caches.append(c)
         return x, aux, _stack(caches) if collect else {}
@@ -315,13 +360,12 @@ class Transformer:
         (B, S) or embeds (B, S, d_model): what ``loss`` feeds the head."""
         return self._forward(params, batch)[0]
 
-    @torch.no_grad()
     def loss(self, params, batch, policy=None):
         """batch: tokens (B, S) [or embeds (B, S, d)] + labels (B, S) [or
         (B, S, n_codebooks)].  Returns (loss, metrics): the CE, plus
         ``router_aux_weight`` x the router loss for MoE.  The CE is taken
         over chunks of ``LOSS_CHUNK`` tokens, so (B, S, vocab) logits are
-        never built."""
+        never built.  Differentiable (see the module docstring)."""
         no_policy(policy)
         cfg = self.cfg
         h, aux = self._forward(params, batch)

@@ -30,26 +30,18 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..tree import flatten_with_paths
+
 __all__ = ["KVSlotPool", "infer_batch_axes", "cache_bytes_per_slot",
            "tree_flatten"]
 
 
-def tree_flatten(tree: Dict[str, Any], prefix: str = ""
+def tree_flatten(tree: Dict[str, Any]
                  ) -> Tuple[List[str], List[torch.Tensor]]:
     """(paths, leaves) of a nested dict of tensors, in sorted key order
     (the order ``jax.tree.flatten`` gives a dict)."""
-    paths: List[str] = []
-    leaves: List[torch.Tensor] = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            p, lv = tree_flatten(v, f"{prefix}{k}/")
-            paths += p
-            leaves += lv
-        else:
-            paths.append(prefix + k)
-            leaves.append(v)
-    return paths, leaves
+    pairs = flatten_with_paths(tree)
+    return [p for p, _ in pairs], [v for _, v in pairs]
 
 
 def _diff_axis(sa, sb) -> int:

@@ -799,3 +799,200 @@ def test_cuda_moe_combine_is_deterministic(cuda):
         for _ in range(3):
             again, aux_again = moe_apply(p, x.to(dtype), cfg)
             assert torch.equal(again, first) and torch.equal(aux_again, aux)
+
+
+# -- training on the card ----------------------------------------------------
+
+def _tree_leaves(tree):
+    from repro_torch.tree import leaves
+    return leaves(tree)
+
+
+def _train_batches(cfg, n, B=2, S=64, seed=1):
+    from repro_torch.data import SyntheticLM
+    src = SyntheticLM(cfg, B, S, seed=seed)
+    return [{k: torch.from_numpy(v) for k, v in src.batch_at(i).items()}
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "flash"])
+@pytest.mark.parametrize("name", ["qwen2.5-14b", "internlm2-20b"])
+def test_cuda_train_step_matches_cpu(no_tf32, name, use_pallas):
+    """Three fp32 AdamW steps of a reduced dense arch on the card (flash's
+    SIMT route with use_pallas) against the plain steps on the CPU from
+    the same weights: losses within 1e-4 relative, params within 1e-4
+    normwise; flash launches twice per layer a step (the forward and the
+    per-layer recompute)."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import adamw
+    cfg, host = _host_params(name)
+    dev = _to(host, "cuda")
+    out = {}
+    for device, params, pallas in (("cpu", host, False),
+                                   ("cuda", dev, use_pallas)):
+        opt = adamw()
+        step = make_train_step(Transformer(cfg, use_pallas=pallas), opt)
+        state = opt.init(params)
+        losses = []
+        before = fa.launches_simt
+        for b in _train_batches(cfg, 3):
+            params, state, m = step(params, state, _to(b, device))
+            losses.append(float(m["loss"]))
+        launched = fa.launches_simt - before
+        out[device] = (losses, params, launched)
+    n_attn = cfg.layer_kinds().count("attn")
+    assert out["cuda"][2] == (3 * 2 * n_attn if use_pallas else 0)
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    num = sum(float(((a.cpu() - b) ** 2).sum()) for a, b in
+              zip(_tree_leaves(out["cuda"][1]), _tree_leaves(out["cpu"][1])))
+    den = sum(float((b ** 2).sum()) for b in _tree_leaves(out["cpu"][1]))
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_cuda_offloaded_optimizer_is_bitwise_the_plain_one(cuda, name,
+                                                          monkeypatch):
+    """The offloaded optimizer's state sits in pinned host memory (the
+    step on the card), and three updates give bitwise the params and
+    state of the plain optimizer on the card.  Pieces of 1000 elements,
+    so AdamW's leaves stream in many slices."""
+    from repro_torch.optim import adafactor, adamw, offload
+    from repro_torch.optim import offloaded_optimizer
+    monkeypatch.setattr(offload, "CHUNK", 1000)
+    make = {"adamw": adamw, "adafactor": adafactor}[name]
+    cfg = reduced(get_config("qwen2.5-14b"))
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = Transformer(cfg).init(gen, dtype=torch.bfloat16)
+    grads = [[torch.randn(p.shape, generator=gen, device=cuda)
+              .to(p.dtype) for p in _tree_leaves(params)] for _ in range(3)]
+    from repro_torch.tree import unflatten
+    runs = []
+    for opt in (make(), offloaded_optimizer(make())):
+        p = unflatten(params, [t.clone() for t in _tree_leaves(params)])
+        state = opt.init(p)
+        for g in grads:
+            p, state = opt.update(unflatten(params, g), state, p)
+        torch.cuda.synchronize()
+        runs.append((p, state))
+    (p1, s1), (p2, s2) = runs
+    assert s2["step"].device.type == "cuda" and int(s2["step"]) == 3
+    arrays = [t for t in _tree_leaves(s2) if t.ndim]
+    assert arrays and all(t.device.type == "cpu" and t.is_pinned()
+                          for t in arrays)
+    for a, b in zip(_tree_leaves(p1) + _tree_leaves(s1),
+                    _tree_leaves(p2) + _tree_leaves(s2)):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("pressure", [False, True],
+                         ids=["quiet", "allocator_pressure"])
+def test_cuda_prefetch_iterator_under_allocator_pressure(cuda, pressure):
+    """Batches copied on the producer's stream arrive intact on the
+    consumer's stream while the caching allocator recycles memory as fast
+    as it can (tensors the size of a batch allocated, written and freed
+    around every step): each batch equals the source's, in order."""
+    from repro_torch.data import PrefetchIterator, SyntheticLM
+    cfg = reduced(get_config("musicgen-large"))
+    src = SyntheticLM(cfg, 4, 256, seed=2)
+    it = PrefetchIterator(src, start_index=5, depth=2)
+    try:
+        for i in range(5, 25):
+            b = next(it)
+            if pressure:
+                for _ in range(4):
+                    junk = [torch.full(t.shape, -7, dtype=t.dtype,
+                                       device=cuda) for t in b.values()]
+                    del junk
+                torch.cuda._sleep(200_000)       # the card stays busy
+            got = {k: v.cpu().numpy() for k, v in b.items()}
+            for k, want in src.batch_at(i).items():
+                np.testing.assert_array_equal(got[k], want)
+            assert all(t.device.type == "cuda" for t in b.values())
+    finally:
+        it.close()
+
+
+def test_cuda_restart_is_bitwise(cuda, tmp_path):
+    """``train`` on the card, straight and (crash at step 6, resume from
+    the step-4 checkpoint): bitwise the same params, and a second straight
+    run gives them again."""
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import FaultInjector
+    cfg = reduced(get_config("internlm2-20b"))
+    kw = dict(steps=8, batch=8, seq=64, ckpt_every=4, log_every=100)
+    a = train(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    inj = FaultInjector((6,))
+    with pytest.raises(RuntimeError, match="injected failure"):
+        train(cfg, ckpt_dir=str(tmp_path / "b"), injector=inj, **kw)
+    b = train(cfg, ckpt_dir=str(tmp_path / "b"), injector=inj, **kw)
+    c = train(cfg, ckpt_dir=str(tmp_path / "c"), **kw)
+    for x, y, z in zip(*(_tree_leaves(o["params"]) for o in (a, b, c))):
+        assert x.device.type == "cuda"
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("route,calm", [("simt", False), ("sm90", False),
+                                        ("sm90", True)],
+                         ids=["simt", "sm90", "sm90-calm"])
+def test_cuda_model_backward_through_flash_matches_plain(cuda, route, calm):
+    """``loss.backward()`` with use_pallas=True against the plain path on
+    the same weights, two launches per attention layer (the forward and
+    the per-layer recompute).  The SIMT route in fp32 (reduced
+    qwen2.5-14b): every gradient leaf within 1e-4 normwise.  The sm90
+    route in bf16 (d_head 128): both bf16 paths are held against the
+    plain path in fp32 on the same weights, and the kernel's gradients
+    may lie at most 10 % farther from it than the plain bf16 path's own
+    (normwise over all leaves).  With the seeded weights attention is
+    nearly an argmax and bf16 alone moves the gradients ~70 % (PERF.md
+    §6); ``calm`` scales w_q and w_k by 0.1, where it moves them
+    far less and the bound is tighter."""
+    cfg = reduced(get_config("qwen2.5-14b"))
+    dtype = torch.float32
+    if route == "sm90":
+        cfg, dtype = dataclasses.replace(cfg, d_head=128), torch.bfloat16
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = Transformer(cfg).init(gen, dtype=dtype)
+    _perturb_constants(params, gen)
+    if calm:
+        for k in ("w_q", "w_k"):
+            params["layers"]["attn"][k].mul_(0.1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                              device=cuda) for k in ("tokens", "labels")}
+
+    def grads(p, pallas):
+        flat = _tree_leaves(p)
+        for t in flat:
+            t.grad = None
+            t.requires_grad_(True)
+        before = (fa.launches_sm90, fa.launches_simt)
+        loss, _ = Transformer(cfg, use_pallas=pallas).loss(p, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = 2 * cfg.layer_kinds().count("attn") if pallas else 0
+        assert (fa.launches_sm90 - before[0], fa.launches_simt
+                - before[1]) == ((n, 0) if route == "sm90" else (0, n))
+        return [t.grad.float() for t in flat]
+
+    def normwise(a, b):
+        num = sum(float((x - y).norm() ** 2) for x, y in zip(a, b))
+        return (num / sum(float(y.norm() ** 2) for y in b)) ** 0.5
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, want = grads(params, True), grads(params, False)
+        if route == "simt":
+            for a, b in zip(got, want):
+                assert ((a - b).norm() / b.norm()).item() <= 1e-4
+            return
+        fp32 = grads(_float_tree(params), False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    e_kernel, e_plain = normwise(got, fp32), normwise(want, fp32)
+    assert e_kernel <= 1.1 * e_plain, (e_kernel, e_plain,
+                                       normwise(got, want))
+
+
+def _float_tree(tree):
+    return {k: _float_tree(v) if isinstance(v, dict)
+            else v.detach().float() for k, v in tree.items()}

@@ -1,6 +1,6 @@
 """The port's examples (``examples/port_*.py``, the JAX-free twins of
-``examples/polybench_3mm.py``, ``offload_pipeline.py`` and
-``serve_demo.py``) run on the CPU when asked to, print what their
+``examples/polybench_3mm.py``, ``offload_pipeline.py``, ``serve_demo.py``
+and ``quickstart.py``) run on the CPU when asked to, print what their
 reference twins print, and import neither JAX nor the reference; without
 ``--device cpu`` they run on the card and raise where there is none."""
 import os
@@ -19,6 +19,8 @@ EXAMPLES = {
                               "27 uploads elided"),
     "port_serve_demo": ("=== internlm2-20b [dense] ===",
                         "=== rwkv6-3b [ssm] ==="),
+    "port_quickstart": ("trained 60 steps", "held-out batch: loss",
+                        "served: 8 tokens/request"),
 }
 
 _PROBE = r"""
@@ -33,6 +35,9 @@ assert not leaked, leaked
 
 def _run(name, *args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # the examples run small ops: one intra-op thread each, so they do
+    # not fight the other test workers for the cores
+    env["OMP_NUM_THREADS"] = "1"
     return subprocess.run(
         [sys.executable, "-c", _PROBE, str(ROOT / "examples" / f"{name}.py"),
          *args], cwd=ROOT, env=env, capture_output=True, text=True,

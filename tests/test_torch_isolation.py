@@ -2,8 +2,9 @@
 its serving engine included) pulls in neither JAX nor any module of the
 reference package, and where there is no CUDA card its device entry
 points (the backend, ``execute``, ``Transformer.init`` and ``init_cache``,
-``ServeRuntime``, ``launch.serve``) raise instead of running on the
-CPU."""
+``ServeRuntime``, ``launch.serve``, ``launch.train``, the prefetch
+iterator and the offloaded optimizer's state placement) raise instead of
+running on the CPU."""
 import os
 import re
 import shutil
@@ -28,6 +29,11 @@ leaked = sorted(m for m in sys.modules
 assert not leaked, leaked
 assert len(names) >= 20, names
 assert "repro_torch.models.moe" in names, names
+for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
+             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+             "repro_torch.runtime.fault", "repro_torch.optim.adamw",
+             "repro_torch.optim.adafactor"):
+    assert name in names, name
 
 import torch
 from repro_torch.configs import get_config, reduced
@@ -36,7 +42,11 @@ from repro_torch.models import Transformer
 from repro_torch.polybench import build
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.serve import ServeRuntime
+from repro_torch.data import PrefetchIterator, SyntheticLM
+from repro_torch.launch.train import main as train_main, train
+from repro_torch.optim import adamw, offloaded_state
 cfg = reduced(get_config("rwkv6-3b"))
+src = SyntheticLM(cfg, 1, 8)
 model = Transformer(cfg, use_pallas=True)
 if torch.cuda.is_available():
     assert get_backend(None).device.type == "cuda"
@@ -51,7 +61,14 @@ else:
                  lambda: ServeRuntime(cfg, max_seq=16),
                  lambda: serve_main(["--arch", "rwkv6-3b", "--reduced"]),
                  lambda: serve_main(["--arch", "rwkv6-3b", "--reduced",
-                                     "--engine"])):
+                                     "--engine"]),
+                 lambda: train(cfg, steps=1, batch=1, seq=8,
+                               ckpt_dir="unused"),
+                 lambda: train_main(["--arch", "rwkv6-3b", "--reduced",
+                                     "--ckpt-dir", "unused"]),
+                 lambda: PrefetchIterator(src),
+                 lambda: offloaded_state(adamw().init(
+                     model.abstract_params()))):
         try:
             make()
         except RuntimeError as e:
