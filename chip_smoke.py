@@ -111,13 +111,40 @@ Drives the port's main path through its public entry points and checks it:
    that differ only in it are measured once (the measured counts), every
    measured kernel time (CUDA events) must lie in (0, wall time], flash
    must launch (1 + reps) x 2 times per measured attn_step class, and
-   TF32 must be as the phase found it.
+   TF32 must be as the phase found it;
+11. mesh: the sharded entry points on one card, through DTensor and
+   NCCL: a world-size-1 NCCL group (``launch.mesh.init_process_group``,
+   a file rendezvous) and a 1×1 ("data", "model") ``DeviceMesh``
+   (``launch.mesh.make_mesh``), destroyed at the end of the phase.
+   (a) 3mm at n = 2048 through ``plan(policy="auto")`` on
+   ``MeshBackend`` (placements replicate / fsdp / tp): the winner
+   verifies, executes onto the host oracle, the fingerprint carries
+   ``meshdata1xmodel1``, a second plan hits the cache with 0
+   measurements; (b) attn_step at qwen2.5-14b's attention width tuned and
+   executed on ``MeshBackend`` (the kernel block's inputs made whole,
+   then flash's SIMT kernel), the loss within 1e-4 of the plain one;
+   (c) ``build_cell(qwen2.5-14b, train, mesh=1×1, use_pallas=True)`` at
+   full width, fp32, 2 of 48 layers, against the unmeshed cell from the
+   same weights: the loss within 1e-5 relative, every gradient leaf
+   within 1e-4 normwise, two flash launches per layer in each cell, the
+   collectives of a meshed step counted; then bf16 steps of 4 layers
+   timed unmeshed, meshed and unmeshed again (the DTensor overhead is
+   reported, not gated), the meshed first step counted (flash's sm90
+   kernel twice per layer, nothing else), its loss within 1e-5 of the
+   unmeshed one and its gradients within MESH_BF16_GRAD_TOL leaf by
+   leaf, the drift of later losses reported beside that of a run with
+   the plain attention; (d) rwkv6-3b and recurrentgemma-2b fp32 forwards
+   at full width cut to 4 layers on the mesh, each kernel on its rank's
+   shard under ``local_map``: hidden within 1e-4 of the unmeshed port's
+   with kernels, one launch per layer of each kernel's kind.
 
 Each kernel's ``launches`` in the kernels line sums the paths that ran it:
-attn_step, model_forward, train (a) and tuner for flash's SIMT route
-(``flash_attention``), model_forward (the zoo's runs included) and train
-(b) for its sm90 route (``flash_attention_sm90``), wkv6 and
-rglru_scan, rmsnorm_path for rmsnorm; comparison launches are not counted.
+attn_step, model_forward, train (a), tuner and mesh for flash's SIMT route
+(``flash_attention``), model_forward (the zoo's runs included), train
+(b) and mesh (c)'s bf16 step for its sm90 route
+(``flash_attention_sm90``), wkv6 and
+rglru_scan (model_forward and mesh), rmsnorm_path for rmsnorm; comparison
+launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -131,6 +158,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -172,6 +200,21 @@ TRAIN_SEQ = 4096
 TRAIN_CUT_LAYERS = 2        # (a) fp32 kernel vs plain; (c) offload, bf16
 TRAIN_TIMED_LAYERS = 4      # (b) bf16, timed and profiled
 TRAIN_TIMED_STEPS = 3       # (b) after one warm step
+# mesh (c): the meshed train cell against the unmeshed one, fp32: the loss
+# relative and each gradient leaf normwise; (d): the meshed forward's final
+# hidden states normwise against the unmeshed port's, both with kernels,
+# at this depth, for these archs
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_TOL = 1e-4
+MESH_HIDDEN_TOL = 1e-4
+MESH_FORWARD_LAYERS = 4
+MESH_FORWARD = ("rwkv6-3b", "recurrentgemma-2b")
+MESH_TIMED_STEPS = 3        # (c) timed, after one warm step, per run
+# mesh (c), bf16: the first step's gradient leaves meshed vs unmeshed,
+# normwise (the meshed cross-entropy takes its gold logit by a one-hot and
+# its log-sum-exp by hand: fp32 rounding apart, which bf16 rounding of the
+# backward widens to about two bf16 steps, 7.9e-3, on an H100)
+MESH_BF16_GRAD_TOL = 2e-2
 
 # time_ms's spin before each timed call: about a millisecond of SM cycles
 HOLD_CYCLES = 2_000_000
@@ -2077,6 +2120,402 @@ def phase_tuner() -> int:
     return launches["flash_attention"]
 
 
+# ---------------------------------------------------------------------------
+# mesh: the sharded entry points on a 1×1 DeviceMesh of one NCCL rank
+# ---------------------------------------------------------------------------
+
+def _mesh_params(model, params, mesh, kind: str):
+    """``params`` placed on ``mesh`` by the sharding rules of ``kind``
+    (copies: the originals stay as they are), and the rules."""
+    from repro_torch.distributed.sharding import (make_rules, place,
+                                                  tree_shardings)
+    rules = make_rules(mesh, kind)
+    return place(params, tree_shardings(rules, params,
+                                        model.logical_axes())), rules
+
+
+def _mesh_3mm(mesh, smi: str) -> None:
+    """mesh (a): 3mm at n = 2048 tuned on ``MeshBackend``: the winner
+    verifies, executes through the mesh backend onto the host oracle, the
+    fingerprint names the mesh, and a second plan hits the cache."""
+    import numpy as np
+
+    from repro_torch.core import (TuneCache, execute, plan, run_host_oracle,
+                                  verify_plan)
+    from repro_torch.core.tunecache import backend_fingerprint
+    from repro_torch.distributed.mesh_backend import MeshBackend
+    from repro_torch.polybench import build_3mm
+
+    t = time.perf_counter()
+    be = MeshBackend(mesh=mesh)
+    fp = backend_fingerprint(be)
+    check(fp.endswith(":meshdata1xmodel1"), f"mesh (a): fingerprint {fp}")
+    cache_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_tc-"))
+    try:
+        tc = TuneCache(cache_dir)
+        p3, _ = build_3mm(n=2048)
+        pl = plan(p3, policy="auto", backend=be, cache=tc, reps=TUNE_REPS)
+        rep = verify_plan(pl)
+        check(rep.ok, f"mesh (a): the winner does not verify: "
+              f"{rep.summary()}")
+        out, _ = execute(pl, backend=be)
+        oracle = run_host_oracle(p3)
+        err = float(np.abs(np.asarray(out["out"]) - oracle["out"]).max()
+                    / np.abs(oracle["out"]).max())
+        check(err <= POLY_RTOL, f"mesh (a): 3mm off the host oracle by "
+              f"{err} of its scale > {POLY_RTOL}")
+        again = plan(build_3mm(n=2048)[0], policy="auto", backend=be,
+                     cache=tc, reps=TUNE_REPS)
+        info = again.meta["tuning_cache"]
+        check(info["hit"] and info["measurements"] == 0,
+              f"mesh (a): second plan {info}, want a hit, 0 measurements")
+        tuning = pl.meta["tuning"]
+        report("mesh", run="3mm_mesh_backend", n=2048,
+               chosen=tuning["chosen"],
+               placement=(pl.meta.get("mesh") or {}).get("placement"),
+               measurements=pl.meta["tuning_cache"]["measurements"],
+               normwise_err=err, tol=POLY_RTOL, fingerprint=fp,
+               seconds=time.perf_counter() - t, card=smi)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _mesh_attn_step(mesh, smi: str) -> dict:
+    """mesh (b): attn_step at qwen2.5-14b's attention width tuned and
+    executed on ``MeshBackend`` (its kernel block's inputs made whole,
+    then flash's SIMT kernel), the loss against the plain version.
+    Returns the launches of the tune and the winner's run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import TuneCache, execute, plan
+    from repro_torch.distributed.mesh_backend import MeshBackend
+    from repro_torch.optim import attention_step_program
+
+    t = time.perf_counter()
+    cfg = get_config("qwen2.5-14b")
+    shapes = (1, 4096, 4096, cfg.n_kv_heads,
+              cfg.n_heads // cfg.n_kv_heads, cfg.d_head)
+    prog = attention_step_program(2, shapes=shapes)
+    be = MeshBackend(mesh=mesh)
+    cache_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_tc-"))
+    try:
+        _set_launch_counts(dict.fromkeys(_counters(), 0))  # the run starts
+        pl = plan(prog, policy="auto", backend=be, cache=TuneCache(cache_dir),
+                  reps=1)
+        out, _ = execute(pl, backend=be)
+        launches = _launch_counts()                        # ... and ends
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    check(launches["flash_attention"] > 0
+          and launches["flash_attention_sm90"] == 0,
+          f"mesh (b): launches {launches}")
+    want = _attn_step_plain_loss(prog)
+    got = np.asarray(out["final_loss"])
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    check(rel <= LOSS_RTOL, f"mesh (b): attn_step loss {got} vs plain "
+          f"{want}: rel err {rel} > {LOSS_RTOL}")
+    report("mesh", run="attn_step_mesh_backend", shapes=list(shapes),
+           chosen=pl.meta["tuning"]["chosen"],
+           measurements=pl.meta["tuning_cache"]["measurements"],
+           rel_err=rel, tol=LOSS_RTOL, launches=launches,
+           seconds=time.perf_counter() - t, card=smi)
+    return launches
+
+
+def _mesh_train(mesh, smi: str) -> dict:
+    """mesh (c): ``build_cell(qwen2.5-14b, train, mesh=1×1,
+    use_pallas=True)`` at full width, fp32, TRAIN_CUT_LAYERS deep, against
+    the unmeshed cell from the same weights: the loss within
+    MESH_LOSS_RTOL, every gradient leaf within MESH_GRAD_TOL normwise, two
+    flash launches per layer in each cell; then one bf16 step of
+    TRAIN_TIMED_LAYERS layers, meshed against unmeshed
+    (``_mesh_train_bf16``).  Returns the meshed cells' launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.sharding import (MeshPolicy, batch_specs,
+                                                  place)
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.optim import default_optimizer
+    from repro_torch.roofline.analysis import collective_trace
+    from repro_torch.tree import leaves
+
+    t_run = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_CUT_LAYERS, dtype="float32")
+    shape = ShapeSpec("train_cut", "train", TRAIN_SEQ, 1)
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = Transformer(cfg).init(gen)
+    _perturb_constants(params, gen)
+    batch = _train_batch(cfg, 0)
+    n_attn = cfg.layer_kinds().count("attn")
+    want = {**dict.fromkeys(_counters(), 0), "flash_attention": 2 * n_attn}
+    losses, counts = {}, None
+    for meshed in (False, True):
+        cell = steps.build_cell(cfg, shape, mesh if meshed else None,
+                                use_pallas=True)
+        p = _clone_tree(params)
+        args = cell.place(p, default_optimizer(cfg).init(p), batch)
+        before = _launch_counts()
+        _set_launch_counts(dict.fromkeys(_counters(), 0))  # the run starts
+        _, _, metrics = cell.fn(*args)
+        got = _launch_counts()                             # ... and ends
+        loss = metrics["loss"]
+        losses[meshed] = float(loss.full_tensor() if meshed else loss)
+        check(got == want, f"mesh (c): {'meshed' if meshed else 'unmeshed'}"
+              f" cell launches {got}, want {want}")
+        if meshed:
+            counts = got
+        else:
+            _set_launch_counts(before)     # the unmeshed cell compares
+        del p, args, metrics, cell
+        torch.cuda.empty_cache()
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    check(math.isfinite(losses[True]) and rel <= MESH_LOSS_RTOL,
+          f"mesh (c): meshed loss {losses[True]} vs unmeshed "
+          f"{losses[False]}: rel err {rel} > {MESH_LOSS_RTOL}")
+    # the gradients, meshed against unmeshed (comparisons, not counted),
+    # and the meshed step's collectives on the 1×1 mesh
+    before = _launch_counts()
+    model = Transformer(cfg, use_pallas=True)
+    _, _, g = steps.value_and_grad(model, _clone_tree(params), batch)
+    plain = leaves(g)
+    del g
+    dp, rules = _mesh_params(model, params, mesh, "train")
+    policy = MeshPolicy(rules, cfg)
+    dbatch = place(batch, batch_specs(rules, cfg, "train", batch))
+    trace = collective_trace()
+    with trace:
+        _, _, g = steps.value_and_grad(model, dp, dbatch, policy=policy)
+    _set_launch_counts(before)
+    errs = [float((a.full_tensor() - b).norm() / b.norm())
+            for a, b in zip(leaves(g), plain)]
+    check(all(math.isfinite(e) and e <= MESH_GRAD_TOL for e in errs),
+          f"mesh (c): gradient leaves meshed vs unmeshed: normwise errs "
+          f"up to {max(errs)} > {MESH_GRAD_TOL}")
+    report("mesh", run="train_fp32_meshed_vs_unmeshed", model=TRAIN_MODEL,
+           n_layers=TRAIN_CUT_LAYERS, batch=1, seq=TRAIN_SEQ,
+           loss_meshed=losses[True], loss_unmeshed=losses[False],
+           loss_rel_err=rel, loss_tol=MESH_LOSS_RTOL, grad_leaves=len(errs),
+           grad_rel_err_max=max(errs), grad_tol=MESH_GRAD_TOL,
+           launches=counts, collectives=len(trace.records),
+           comm_counts={str(k): v for k, v in
+                        trace.get_comm_counts().items()},
+           seconds=time.perf_counter() - t_run, card=smi)
+    del params, dp, dbatch, g, plain
+    torch.cuda.empty_cache()
+    bf16 = _mesh_train_bf16(mesh, smi)
+    return {k: counts[k] + bf16[k] for k in counts}
+
+
+def _mesh_train_bf16(mesh, smi: str) -> dict:
+    """mesh (c), bf16: AdamW steps of TRAIN_TIMED_LAYERS layers from the
+    same weights and batch, unmeshed, meshed and unmeshed again (the
+    order brackets drift), then unmeshed with the plain attention (the
+    rounding control).  Each run takes a first step, then
+    MESH_TIMED_STEPS steps timed by CUDA events (the median kept; the
+    DTensor overhead is the meshed median over the mean of the two
+    unmeshed ones, reported, not gated).  The meshed first step is the
+    main path's: its launches are counted and must be flash's sm90
+    kernel twice per attention layer (the forward and the backward's
+    recompute) and nothing else; its loss, taken before any update, must
+    be within MESH_LOSS_RTOL of the unmeshed one.  The first step's
+    gradients, meshed against unmeshed, must agree leaf by leaf within
+    MESH_BF16_GRAD_TOL normwise; the plain attention's against the
+    kernel's are reported beside them.  Returns the counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.sharding import (MeshPolicy, batch_specs,
+                                                  place)
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.optim import default_optimizer
+    from repro_torch.tree import flatten_with_paths, leaves
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_TIMED_LAYERS)
+    shape = ShapeSpec("train_timed", "train", TRAIN_SEQ, 1)
+    gen = torch.Generator("cuda").manual_seed(1)
+    params = Transformer(cfg).init(gen)
+    batch = _train_batch(cfg, 1)
+    want = {**dict.fromkeys(_counters(), 0),
+            **_expected_launches(cfg, torch.bfloat16, n_forwards=2)}
+    runs, counts = [], None
+    before = _launch_counts()
+    for label, meshed, kernels in (("unmeshed", False, True),
+                                   ("meshed", True, True),
+                                   ("unmeshed", False, True),
+                                   ("unmeshed_plain_attention", False,
+                                    False)):
+        cell = steps.build_cell(cfg, shape, mesh if meshed else None,
+                                use_pallas=kernels)
+        p = _clone_tree(params)
+        args = cell.place(p, default_optimizer(cfg).init(p), batch)
+        if meshed:
+            _set_launch_counts(dict.fromkeys(_counters(), 0))  # starts
+        _, _, metrics = cell.fn(*args)                     # first step
+        torch.cuda.synchronize()
+        if meshed:
+            counts = _launch_counts()                      # ... and ends
+        losses = [metrics["loss"]]
+        times = []
+        for _ in range(MESH_TIMED_STEPS):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            _, _, metrics = cell.fn(*args)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            losses.append(metrics["loss"])
+        losses = [float(v.full_tensor() if meshed else v) for v in losses]
+        runs.append({"run": label, "step_ms": times,
+                     "step_ms_median": sorted(times)[len(times) // 2],
+                     "losses": losses})
+        del p, args, metrics, cell
+        torch.cuda.empty_cache()
+    check(counts == want, f"mesh (c) bf16: meshed first step launches "
+          f"{counts}, want {want}")
+    plain, meshed_run, _, control = runs
+    check(all(math.isfinite(v) for r in runs for v in r["losses"]),
+          f"mesh (c) bf16: losses {[r['losses'] for r in runs]}")
+    loss_err = (abs(meshed_run["losses"][0] - plain["losses"][0])
+                / abs(plain["losses"][0]))
+    check(loss_err <= MESH_LOSS_RTOL, f"mesh (c) bf16: first-step loss "
+          f"meshed {meshed_run['losses'][0]} vs unmeshed "
+          f"{plain['losses'][0]}: rel err {loss_err} > {MESH_LOSS_RTOL}")
+
+    # the first step's gradients: meshed and plain attention against the
+    # unmeshed kernel's (comparisons, not counted)
+    model = Transformer(cfg, use_pallas=True)
+    _, _, g = steps.value_and_grad(model, _clone_tree(params), batch)
+    ref = [x.float() for x in leaves(g)]
+    del g
+    dp, rules = _mesh_params(model, params, mesh, "train")
+    dbatch = place(batch, batch_specs(rules, cfg, "train", batch))
+    _, _, g = steps.value_and_grad(model, dp, dbatch,
+                                   policy=MeshPolicy(rules, cfg))
+    names = [k for k, _ in flatten_with_paths(g)]
+    mesh_errs = [float((a.full_tensor().float() - b).norm() / b.norm())
+                 for a, b in zip(leaves(g), ref)]
+    del g, dp, dbatch
+    _, _, g = steps.value_and_grad(Transformer(cfg), _clone_tree(params),
+                                   batch)
+    control_errs = [float((a.float() - b).norm() / b.norm())
+                    for a, b in zip(leaves(g), ref)]
+    del g, ref
+    _set_launch_counts(before)
+    check(all(math.isfinite(e) and e <= MESH_BF16_GRAD_TOL
+              for e in mesh_errs),
+          f"mesh (c) bf16: gradient leaves meshed vs unmeshed: normwise "
+          f"errs up to {max(mesh_errs)} > {MESH_BF16_GRAD_TOL}")
+    unmeshed_ms = [r["step_ms_median"] for r in runs[:3] if r is not
+                   meshed_run]
+    last = plain["losses"][-1]
+    report("mesh", run="train_bf16_step_ms", model=TRAIN_MODEL,
+           n_layers=TRAIN_TIMED_LAYERS, batch=1, seq=TRAIN_SEQ,
+           runs=runs, launches=counts,
+           first_loss_rel_err=loss_err, first_loss_tol=MESH_LOSS_RTOL,
+           grad_rel_err=dict(zip(names, mesh_errs)),
+           grad_rel_err_max=max(mesh_errs), grad_tol=MESH_BF16_GRAD_TOL,
+           grad_rel_err_plain_attention=dict(zip(names, control_errs)),
+           last_loss_rel_drift=abs(meshed_run["losses"][-1] - last) / last,
+           last_loss_rel_drift_plain_attention=abs(
+               control["losses"][-1] - last) / last,
+           dtensor_overhead_ms=meshed_run["step_ms_median"]
+           - sum(unmeshed_ms) / len(unmeshed_ms),
+           seconds=time.perf_counter() - t, card=smi)
+    del params, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _mesh_forward(mesh, name: str, smi: str) -> dict:
+    """mesh (d): ``Transformer.hidden`` of ``name`` at full width, fp32,
+    MESH_FORWARD_LAYERS deep, B = 1, S = 4096, with kernels on the 1×1
+    mesh (each kernel on its rank's shard, under ``local_map``) against
+    the unmeshed port with kernels: within MESH_HIDDEN_TOL normwise, one
+    launch per layer of each kernel's kind.  Returns the meshed run's
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshPolicy, distribute
+    from repro_torch.models import Transformer
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=MESH_FORWARD_LAYERS, dtype="float32")
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = Transformer(cfg, use_pallas=True)
+    params = model.init(gen)
+    _perturb_constants(params, gen)
+    tokens = torch.randint(0, cfg.vocab, (1, 4096), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    before = _launch_counts()
+    want = model.hidden(params, {"tokens": tokens})       # compares
+    dp, rules = _mesh_params(model, params, mesh, "prefill")
+    dtok = distribute(tokens, mesh, ("data", None))
+    _set_launch_counts(dict.fromkeys(_counters(), 0))     # the run starts
+    got = model.hidden(dp, {"tokens": dtok}, MeshPolicy(rules, cfg))
+    counts = _launch_counts()                             # ... and ends
+    _set_launch_counts(before)
+    got = got.full_tensor()
+    err = float((got - want).norm() / want.norm())
+    expect = _expected_launches(cfg, torch.float32)
+    check(counts == expect, f"mesh (d) {name}: launches {counts}, want "
+          f"{expect}")
+    check(math.isfinite(err) and err <= MESH_HIDDEN_TOL,
+          f"mesh (d) {name}: hidden meshed vs unmeshed {err} > "
+          f"{MESH_HIDDEN_TOL}")
+    report("mesh", run="forward_fp32_meshed_vs_unmeshed", model=name,
+           n_layers=MESH_FORWARD_LAYERS, batch=1, seq=4096,
+           hidden_rel_err=err, tol=MESH_HIDDEN_TOL, launches=counts,
+           seconds=time.perf_counter() - t, card=smi)
+    del params, dp, want, got
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_mesh(smi: str) -> dict:
+    """The mesh on the card (see the module docstring, 11): a world-size-1
+    NCCL group, a 1×1 ("data", "model") ``DeviceMesh`` through
+    ``launch.mesh.make_mesh``, parts (a)–(d), the group destroyed at the
+    end.  Returns the launches of the parts' main-path runs."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    t = time.perf_counter()
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh-"))
+    launches = dict.fromkeys(_counters(), 0)
+    init_process_group("cuda", 0, 1, str(store))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        _mesh_3mm(mesh, smi)
+        parts = [_mesh_attn_step(mesh, smi), _mesh_train(mesh, smi)]
+        parts += [_mesh_forward(mesh, name, smi) for name in MESH_FORWARD]
+        for part in parts:
+            for kernel, n in part.items():
+                launches[kernel] += n
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    report("mesh", run="all", launches=launches,
+           seconds=time.perf_counter() - t, card=smi)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2104,6 +2543,8 @@ def main() -> int:
         launches[kernel] += n
     launches["rmsnorm"] = phase_rmsnorm_path()
     launches["flash_attention"] += phase_tuner()
+    for kernel, n in phase_mesh(smi).items():
+        launches[kernel] += n
     for name in rows:
         check(launches[name] > 0, f"the main path never launched {name}")
     print(json.dumps({"kernels": [{

@@ -21,6 +21,13 @@ dtype ``"bfloat16"``) and read back through the manifest's dtype, the
 payload viewed as int16 and then as bf16.  The reference's own
 ``restore`` cannot read such a leaf (numpy gives ``|V2``, which JAX
 refuses), so without this the port could not resume a bf16 model.
+
+On a mesh (DTensor leaves) every rank calls ``save``: each leaf is
+gathered whole (``full_tensor``), rank 0 writes the same files as for
+plain tensors, and ``wait()`` ends with a barrier, after which every
+rank can read them.  ``restore(..., shardings=)`` places each leaf by a
+tree of ``distributed.NamedSharding``, whatever mesh or placement the
+checkpoint was saved from (the reference's elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tree import flatten_with_paths, treedef_str, unflatten
+from ..distributed.sharding import is_dtensor
+from ..tree import flatten_with_paths, leaves, treedef_str, unflatten
 
 __all__ = ["CheckpointManager"]
 
@@ -45,6 +53,8 @@ def _host_array(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A snapshot of ``t`` on the host as numpy, and its dtype's name as
     the reference's manifest spells it.  bf16 travels as its int16 bits."""
     t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
     host = t.cpu() if t.device.type != "cpu" else t.clone()
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy(), "bfloat16"
@@ -71,12 +81,18 @@ def _load_npy(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._pending: Optional[threading.Thread] = None
+        self._meshed = False        # the last save gathered DTensors
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, *, extra: Optional[Dict] = None,
@@ -87,8 +103,9 @@ class CheckpointManager:
         if torch.cuda.is_initialized():
             # pinned host leaves may still be the target of stream copies
             torch.cuda.synchronize()
-        host_leaves = [(k, *_host_array(v))
-                       for k, v in flatten_with_paths(tree)]
+        flat = flatten_with_paths(tree)
+        self._meshed = any(is_dtensor(v) for _, v in flat)
+        host_leaves = [(k, *_host_array(v)) for k, v in flat]
         manifest = {
             "step": step,
             "extra": extra or {},
@@ -114,6 +131,10 @@ class CheckpointManager:
             os.replace(tmp, final)      # atomic publish
             self._gc()
 
+        if self._meshed and _rank() != 0:
+            if blocking:
+                self.wait()
+            return
         t = threading.Thread(target=write, daemon=True)
         t.start()
         self._pending = t
@@ -121,10 +142,15 @@ class CheckpointManager:
             self.wait()
 
     def wait(self) -> None:
-        """synchronize: barrier for the in-flight save."""
+        """synchronize: barrier for the in-flight save (and, after a save
+        on a mesh, across the ranks)."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._meshed:
+            import torch.distributed as dist
+            self._meshed = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = sorted(self.all_steps())
@@ -145,12 +171,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree: Any, device=None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, step: int, target_tree: Any, device=None,
+                shardings: Optional[Any] = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``target_tree``: each leaf on
         ``device``, or where the target's leaf lives (pinned if it is
         pinned) when ``device`` is None; a ``meta`` target gives CPU
-        tensors.  Shapes must match the target's."""
+        tensors.  With ``shardings`` (a tree of ``NamedSharding``) each
+        leaf is placed on its mesh instead.  Shapes must match the
+        target's."""
+        sh = None
+        if shardings is not None:
+            from ..distributed.sharding import NamedSharding
+            sh = leaves(shardings,
+                        is_leaf=lambda x: isinstance(x, NamedSharding))
         d = self.dir / f"step_{step:010d}"
         manifest = json.loads((d / "manifest.json").read_text())
         by_key = {e["key"]: e for e in manifest["leaves"]}
@@ -165,7 +198,12 @@ class CheckpointManager:
                 raise ValueError(
                     f"leaf {key!r}: checkpoint shape {tuple(t.shape)} != "
                     f"target {want}")
-            out.append(self._place(t, tgt, device))
+            if sh is None:
+                out.append(self._place(t, tgt, device))
+            else:
+                from ..distributed.sharding import place_leaf
+                s = sh[len(out)]
+                out.append(place_leaf(t.to(s.mesh.device_type), s))
         return unflatten(target_tree, out), manifest["extra"]
 
     @staticmethod
@@ -176,9 +214,10 @@ class CheckpointManager:
             device = tgt.device if tgt.device.type != "meta" else "cpu"
         return t if device is None else t.to(device)
 
-    def restore_latest(self, target_tree: Any, device=None):
+    def restore_latest(self, target_tree: Any, device=None,
+                       shardings: Optional[Any] = None):
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, target_tree, device)
+        tree, extra = self.restore(step, target_tree, device, shardings)
         return step, tree, extra

@@ -20,7 +20,9 @@ Registered names, against the reference's: ``"numpy"`` → ``"numpy"``,
 ``jax`` → ``"torch"``, ``pinned`` → ``"pinned"``.  ``"torch"`` and
 ``"pinned"`` both build the ``TorchDeviceBackend``, whose uploads already
 stage through pinned host memory (what the reference's pinned backend
-adds to its ``jax`` one); the mesh backend waits for the mesh slice.
+adds to its ``jax`` one); ``"mesh"`` is
+``distributed.mesh_backend.MeshBackend``, registered when that module is
+first imported (``get_backend("mesh")`` imports it).
 
 Streams are logical ids chosen by the planner (``AdvancedLoad.stream``
 etc.); a backend may map many logical streams onto fewer physical ones
@@ -511,6 +513,8 @@ def get_backend(spec: Any = None) -> Backend:
         return spec
     if spec is None:
         spec = "torch"
+    if spec == "mesh" and spec not in _REGISTRY:
+        from ..distributed import mesh_backend  # noqa: F401 - registers
     if spec not in _INSTANCES:
         try:
             factory = _REGISTRY[spec]

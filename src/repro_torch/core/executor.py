@@ -27,12 +27,16 @@ random programs through this).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
+import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from ..distributed.sharding import is_dtensor
 from .backend import Backend, get_backend
 from .dtypes import numpy_dtype
 from .ir import (AdvancedLoad, BlockKind, Callsite, DelegateStore, GroupDecl,
@@ -106,15 +110,37 @@ def _kv_key(kv: Dict[str, Dict[str, int]]):
 
 def kernel_fn(blk, variants: Optional[Dict[str, Dict[str, int]]] = None):
     """The callable to launch for ``blk``: kernel-tagged blocks get their
-    chosen tile parameters bound as keyword arguments (memoized partials,
-    so caches keyed on fn identity still hit); every other
-    block launches ``blk.fn`` unchanged."""
-    if getattr(blk, "kernel", None) and variants:
-        params = variants.get(blk.kernel)
-        if params:
-            from ..kernels.variants import bind_variant
-            return bind_variant(blk.fn, tuple(sorted(params.items())))
-    return blk.fn
+    chosen tile parameters bound as keyword arguments and run whole on a
+    mesh (``_unsharded``); both are memoized, so caches keyed on fn
+    identity still hit.  Every other block launches ``blk.fn``
+    unchanged."""
+    if not getattr(blk, "kernel", None):
+        return blk.fn
+    fn = blk.fn
+    params = (variants or {}).get(blk.kernel)
+    if params:
+        from ..kernels.variants import bind_variant
+        fn = bind_variant(fn, tuple(sorted(params.items())))
+    return _unsharded(fn)
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded(fn):
+    """A kernel-tagged body as the mesh runs it: kernels are not sharded,
+    so its DTensor inputs are made whole (``Replicate()``) on every rank,
+    the kernel runs on those local tensors, and its outputs come back
+    replicated.  Plain inputs pass through untouched."""
+    def run(xp, **kw):
+        mesh = next((v.device_mesh for v in kw.values() if is_dtensor(v)),
+                    None)
+        if mesh is None:
+            return fn(xp, **kw)
+        rep = (Replicate(),) * mesh.ndim
+        out = fn(xp, **{k: v.redistribute(placements=rep).to_local()
+                        if is_dtensor(v) else v for k, v in kw.items()})
+        return {k: DTensor.from_local(v, mesh, rep, run_check=False)
+                if torch.is_tensor(v) else v for k, v in out.items()}
+    return run
 
 
 def _verify_default() -> bool:
@@ -170,6 +196,12 @@ def execute(p: Plan, inputs: Optional[Dict[str, np.ndarray]] = None,
         kernel_variants = p.meta.get("kernel_variants")
     kernel_variants = _kv_norm(kernel_variants)
     be = get_backend(backend)
+    # a mesh-tuned plan carries its winning per-variable placement in
+    # meta["mesh"]; re-apply it on any placement-capable backend so
+    # executing the winner directly shards exactly as measured
+    mesh_meta = p.meta.get("mesh")
+    if mesh_meta and hasattr(be, "with_placement"):
+        be = be.with_placement(mesh_meta.get("specs") or {})
     if verify is None:
         verify = _verify_default()
     if verify:

@@ -136,13 +136,21 @@ def _device_key(backend) -> str:
     return key
 
 
+def _mesh_suffix(backend) -> str:
+    mesh_key = getattr(backend, "mesh_key", None)
+    return f":mesh{mesh_key}" if mesh_key else ""
+
+
 def backend_fingerprint(backend) -> str:
     """Identity string for the measuring backend: two backends with the
-    same fingerprint must time a plan the same way."""
+    same fingerprint must time a plan the same way.  Mesh backends fold
+    in the mesh shape + axis names: the same program tuned on a 2x4 and
+    a 1x8 mesh picks different placements, so the tables must not alias
+    (the per-candidate placement is part of the grid, not this)."""
     return (f"{type(backend).__name__}:{backend.name}"
             f":streams{backend.n_streams}"
             f":donate{getattr(backend, 'donate', False)}"
-            f":{_device_key(backend)}")
+            f":{_device_key(backend)}{_mesh_suffix(backend)}")
 
 
 def grid_fingerprint(configs: Sequence, protocol: Dict[str, Any]) -> str:
@@ -184,8 +192,10 @@ def device_class_key(backend) -> str:
     the donation flag: those are per-candidate knobs (features of a
     measured row), not properties of the silicon — a 4-stream and a
     2-stream run of the same device must pool their measurements rather
-    than fit in separate slots."""
-    return f"{type(backend).__name__}:{backend.name}:{_device_key(backend)}"
+    than fit in separate slots.  A mesh backend folds in its mesh, as
+    ``backend_fingerprint`` does."""
+    return (f"{type(backend).__name__}:{backend.name}:{_device_key(backend)}"
+            f"{_mesh_suffix(backend)}")
 
 
 class TuneCache:

@@ -16,14 +16,26 @@ the paper explores —
                          (``repro_torch.kernels.variants``), priced by a
                          per-kernel roofline cutout so ``kernel_s``
                          differs across tile candidates
+    mesh placement       replicate / fsdp / tp per-variable sharding on
+                         placement-capable backends
+                         (``distributed.mesh_backend``): priced from one
+                         traced run of each block on ``meta`` DTensors
+                         (per-device FLOPs + collective wire bytes against
+                         ``ici_bw``), measured on a ``with_placement``
+                         twin, recorded in ``meta["mesh"]``; "" (absent)
+                         on single-device backends, whose grid is
+                         unchanged
 
 — rank them with a static cost model that reuses the roofline machinery
 (``repro_torch.roofline.analysis``: per-block FLOPs counted by
 ``FlopCounterMode``, PCIe/HBM bandwidths, launch overhead × dispatch
 count), measure the distinct candidates, and return the winner with the
-full ranked table in ``plan.meta["tuning"]``.  The reference's sixth
-axis, mesh placement, waits for the port's distributed slice: the axis
-is ``("",)`` (one device) and any other ``placements=`` raises.
+full ranked table in ``plan.meta["tuning"]``.  On a multi-rank mesh
+only rank 0 reads and writes the tune cache, and what it read (a cached
+table, the calibration, the cross-program predictor) is broadcast, so
+every rank prices and ranks the candidates alike; every rank then
+measures the same candidates in the same order, each measured time is
+the MAX over the ranks, and every rank reaches the same winner.
 
 *Dominance pruning* — configs that are execution-identical (a streams
 axis with < 2 groups, donate on a backend without donation, fuse on a
@@ -84,7 +96,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..roofline.analysis import (HW, block_flops, candidate_features,
                                  fit_candidate_predictor,
@@ -121,8 +133,9 @@ class PlanConfig:
     # defaults (also the only value for kernel-free programs, keeping
     # labels/fingerprints of the pre-kernel-axis grid unchanged)
     kernel_variants: Tuple[KernelChoice, ...] = ()
-    # mesh placement policy: always "" here (one device); kept so labels,
-    # config records and fingerprints have the reference's layout
+    # mesh placement policy: "" on single-device backends (keeping their
+    # labels and fingerprints unchanged), else one of
+    # ``distributed.mesh_backend.DEFAULT_PLACEMENTS``
     mesh_placement: str = ""
 
     @property
@@ -229,7 +242,8 @@ def _kernel_block_terms(blk, params, shapes,
 def predict_cost(pl: Plan, cfg: PlanConfig,
                  block_flops: Optional[Dict[int, float]] = None,
                  hw: Optional[Dict[str, float]] = None,
-                 shapes: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                 shapes: Optional[Dict[str, Any]] = None,
+                 mesh: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Walk the plan with loop-trip multipliers and price it:
 
     * transfer bytes  — Σ nbytes(var) × trip multiplier per load/store,
@@ -247,7 +261,12 @@ def predict_cost(pl: Plan, cfg: PlanConfig,
 
     ``hw`` overrides the pricing constants (the tuner passes the
     calibrated set when one is cached for the device class); ``shapes``
-    is the analyzer's var → ShapeDtype map.  Returns the counters plus
+    is the analyzer's var → ShapeDtype map.  ``mesh`` is one
+    placement's pricing context (``mesh_cost_terms``): per-device block
+    FLOPs replace the single-device ones, each load's bytes scale by the
+    variable's h2d factor (a replicated upload copies to every device),
+    and the blocks' collective wire bytes accumulate into ``coll_bytes``
+    priced against ``ici_bw``.  Returns the counters plus
     ``offload_cost_terms`` (transfer_s / dispatch_s / kernel_s /
     collective_s / predicted_s / energy_j); ``coll_bytes`` is 0 on one
     device.
@@ -266,6 +285,10 @@ def predict_cost(pl: Plan, cfg: PlanConfig,
     flops = 0.0
     kernel_bytes = 0.0
     coll_bytes = 0.0
+    mesh_flops = (mesh or {}).get("flops_by_block", {})
+    mesh_coll = (mesh or {}).get("coll_by_block", {})
+    h2d_factor = (mesh or {}).get("h2d_factor", {})
+    n_dev = (mesh or {}).get("n_devices", 1)
 
     mult_stack: List[int] = []
     fused_depth = 0
@@ -307,15 +330,18 @@ def predict_cost(pl: Plan, cfg: PlanConfig,
                 flops += kterms["flops"] * m
                 kernel_bytes += kterms["kernel_bytes"] * m
             else:
-                flops += flops_of.get(blk.idx, 0.0) * m
+                flops += mesh_flops.get(blk.idx,
+                                        flops_of.get(blk.idx, 0.0)) * m
                 touched = set(blk.effective_reads()) | set(blk.writes)
                 kernel_bytes += sum(nb.get(v, 0) for v in touched) * m
+            coll_bytes += mesh_coll.get(blk.idx, 0.0) * m
         elif op.kind == "directive":
             d = op.directive
             m = mult()
             if isinstance(d, AdvancedLoad):
                 loads += m
-                h2d_bytes += nb.get(d.var, 0) * m
+                h2d_bytes += nb.get(d.var, 0) * h2d_factor.get(d.var,
+                                                               n_dev) * m
                 dispatches += m
             elif isinstance(d, DelegateStore):
                 stores += m
@@ -489,16 +515,21 @@ def _measurable(program: Program) -> bool:
                for v in program.inputs.values())
 
 
-def _measure(pl: Plan, cfg: PlanConfig, be: Backend,
-             reps: int) -> Tuple[float, float]:
+def _measure(pl: Plan, cfg: PlanConfig, be: Backend, reps: int,
+             placement: Any = None) -> Tuple[float, float]:
     from .executor import execute
     # measure on a physically matching backend: cfg.n_streams real
     # queues (streams 3/4 must not fold onto a 2-queue instance) and the
     # candidate's donation flag, launching the candidate's kernel tile
-    # sizes.  Returns (wall_time, kernel_time) of the best rep: the
+    # sizes, and on a mesh backend the candidate's per-variable placement
+    # twin.  Returns (wall_time, kernel_time) of the best rep: the
     # kernel leg (device time on a card) feeds the measured-vs-predicted
     # residual that makes roofline drift visible in the tuning table.
+    # On several ranks both are the MAX over the ranks, so every rank
+    # ranks the same numbers.
     mbe = be.variant(n_streams=cfg.n_streams, donate=cfg.donate)
+    if placement is not None and hasattr(mbe, "with_placement"):
+        mbe = mbe.with_placement(placement)
     kw = dict(mode="compiled", fuse_loops=cfg.fuse_loops,
               kernel_variants=cfg.variants_map() or None,
               backend=mbe)
@@ -510,7 +541,25 @@ def _measure(pl: Plan, cfg: PlanConfig, be: Backend,
         if s.wall_time < best:              # steady-state, compile excluded
             best = s.wall_time
             best_kernel = s.kernel_time
+    agree = getattr(be, "agree_max", None)
+    if agree is not None:
+        best, best_kernel = agree([best, best_kernel])
     return best, best_kernel
+
+
+def _is_writer(be: Backend) -> bool:
+    """Whether this process reads and writes the tune cache: rank 0 of
+    a mesh backend's group, any single-process backend."""
+    return bool(getattr(be, "is_writer", True))
+
+
+def _from_writer(be: Backend, read: Callable[[], Any]) -> Any:
+    """``read()`` (of the tune cache) on the writer, and its result on
+    every rank: ranks whose caches differ still price alike."""
+    share = getattr(be, "from_writer", None)
+    if share is None:
+        return read()
+    return share(read() if _is_writer(be) else None)
 
 
 def winner_exec_kwargs(pl: Plan, backend: Any = None) -> Dict[str, Any]:
@@ -611,11 +660,14 @@ def _cached_plan(program: Program, an: ProgramAnalysis, tuning: Dict,
     cfg = _cfg_from_dict(chosen["config"])
     pl = Pipeline.default(cfg.policy, n_streams=cfg.n_streams
                           ).run(program, analysis=an)
+    mesh_rec = tuning.get("mesh")
     report = verify_plan(pl, donate=cfg.donate and be.supports_donation,
                          kernel_variants=cfg.variants_map() or None,
-                         shapes=an.shapes)
+                         shapes=an.shapes, mesh=mesh_rec)
     pl.meta["verify"] = report.meta_record()
     report.raise_if_failed()
+    if mesh_rec is not None:
+        pl.meta["mesh"] = mesh_rec
     pl.meta["tuning"] = tuning
     pl.meta["fuse_loops"] = cfg.fuse_loops
     pl.meta["donate"] = cfg.donate
@@ -624,6 +676,21 @@ def _cached_plan(program: Program, an: ProgramAnalysis, tuning: Dict,
     pl.meta["tuning_cache"] = {"hit": True, "measurements": 0,
                                "path": str(tc.path), "fingerprint": fp}
     return pl
+
+
+def _mesh_record(be: Backend, ctx: Dict[str, Any]) -> Dict[str, Any]:
+    """JSON-safe ``meta["mesh"]`` record for one placement context (what
+    the verifier checks, ``execute()`` re-applies via ``with_placement``,
+    and the tune cache round-trips)."""
+    shape, axes = be.mesh_desc
+    return {
+        "shape": list(shape),
+        "axes": list(axes),
+        "placement": ctx["placement"],
+        "n_devices": int(ctx["n_devices"]),
+        "specs": {v: list(e) for v, e in ctx["specs"].items()},
+        "dropped": [list(d) for d in ctx["dropped"]],
+    }
 
 
 def _kernel_variant_combos(program: Program,
@@ -732,26 +799,41 @@ def tune(program: Program, *, backend: Any = None,
         plan.meta["fuse_loops"] / ["donate"]
                               — how the winner wants to be executed
 
-    ``placements`` is the reference's mesh placement axis: only
-    ``None`` or ``("",)`` (one device) is accepted here; anything else
-    raises ``NotImplementedError`` until the distributed slice lands.
+    ``placements`` is the mesh placement axis: ``None`` takes
+    ``DEFAULT_PLACEMENTS`` on a placement-capable backend
+    (``MeshBackend``) and ``("",)`` elsewhere.
     """
     from .compile import fusable_loops
     an = analysis or analyze(program)
     be = get_backend(backend)
-    # -- mesh placement axis: one device, so the single "" placement ------
+    # -- mesh placement axis: only on placement-capable backends ----------
+    mesh_capable = (hasattr(be, "with_placement")
+                    and getattr(be, "mesh_desc", None) is not None)
     if placements is None:
-        placements = ("",)
+        if mesh_capable:
+            from ..distributed.mesh_backend import DEFAULT_PLACEMENTS
+            placements = DEFAULT_PLACEMENTS
+        else:
+            placements = ("",)   # single-device grid: unchanged labels/fps
     cfg_list = list(configs) if configs is not None else enumerate_configs(
         policies, streams, fuse, donate, placements)
     if not cfg_list:
         raise ValueError("tune() needs at least one candidate config")
-    sharded = sorted({c.mesh_placement for c in cfg_list
-                      if c.mesh_placement})
-    if sharded:
-        raise NotImplementedError(
-            f"mesh placements {sharded} wait for the distributed slice of "
-            "the port; this tuner runs on one device (placements=('',))")
+
+    # per-placement pricing context: specs through the divisibility-
+    # guarded sharding rules, per-device flops + collective wire bytes
+    # from one traced run on meta DTensors, PCIe replication factors
+    mesh_ctx: Dict[str, Dict[str, Any]] = {}
+    if mesh_capable:
+        from ..distributed.mesh_backend import (mesh_cost_terms,
+                                                placement_specs)
+        for pol in sorted({c.mesh_placement for c in cfg_list
+                           if c.mesh_placement}):
+            specs, dropped = placement_specs(an.shapes, be.mesh, pol)
+            ctx = mesh_cost_terms(program, an.shapes, be, specs)
+            ctx["placement"] = pol
+            ctx["dropped"] = dropped
+            mesh_ctx[pol] = ctx
 
     # -- kernel axis: cross the grid with per-kernel tile variants ----------
     combos = _kernel_variant_combos(program, an)
@@ -789,7 +871,7 @@ def tune(program: Program, *, backend: Any = None,
         slot = (f"{program.name}--{be_key}"
                 f"--{grid_fingerprint(cfg_list, protocol)[:16]}")
         if not refresh:
-            payload = tc.lookup(slot, fp)
+            payload = _from_writer(be, lambda: tc.lookup(slot, fp))
             if payload is not None:
                 try:
                     return _cached_plan(program, an, payload["tuning"],
@@ -798,12 +880,13 @@ def tune(program: Program, *, backend: Any = None,
                         TypeError, ValueError):
                     # corrupt payload or a winner that no longer passes
                     # the verifier: evict and fall through to a fresh run
-                    tc.evict(slot)
+                    if _is_writer(be):
+                        tc.evict(slot)
 
     # -- pricing constants: calibrated when a fit is cached -----------------
     pricing_hw = dict(HW)
     if use_calibration and tc is not None:
-        fitted = tc.load_calibration(dc_key, HW)
+        fitted = _from_writer(be, lambda: tc.load_calibration(dc_key, HW))
         if fitted:
             pricing_hw.update(fitted)
 
@@ -814,15 +897,15 @@ def tune(program: Program, *, backend: Any = None,
     predictor_source = None
     n_train_rows = 0
     if tc is not None:
-        train_rows = tc.load_measured_rows(dc_key, HW, exclude_fp=prog_fp)
-        n_train_rows = len(train_rows)
-        predictor_model = fit_candidate_predictor(train_rows)
-        if predictor_model is not None:
-            predictor_source = "fit"
-        else:
-            predictor_model = tc.load_predictor(dc_key, HW)
-            if predictor_model is not None:
-                predictor_source = "cache"
+        def read_predictor():
+            rows = tc.load_measured_rows(dc_key, HW, exclude_fp=prog_fp)
+            model = fit_candidate_predictor(rows)
+            if model is not None:
+                return model, "fit", len(rows)
+            model = tc.load_predictor(dc_key, HW)
+            return model, (None if model is None else "cache"), len(rows)
+        predictor_model, predictor_source, n_train_rows = _from_writer(
+            be, read_predictor)
 
     # -- enumerate + dominance-prune into execution classes -----------------
     flops_cache: Optional[Dict[int, float]] = None
@@ -862,6 +945,7 @@ def tune(program: Program, *, backend: Any = None,
         eff_donate = cfg.donate and be.supports_donation
         key = (tuple(pl.ops), eff_fuse, eff_donate, cfg.kernel_variants,
                cfg.mesh_placement)
+        cfg_mesh = mesh_ctx.get(cfg.mesh_placement)
         survivor = classes.get(key)
         if survivor is None:
             # every execution class is statically vetted BEFORE it is
@@ -873,7 +957,9 @@ def tune(program: Program, *, backend: Any = None,
             # share one verdict), and aliases inherit the survivor's.
             vrep = verify_plan(pl, donate=eff_donate,
                                kernel_variants=cfg.variants_map() or None,
-                               shapes=an.shapes, collect_lints=False)
+                               shapes=an.shapes, collect_lints=False,
+                               mesh=(_mesh_record(be, cfg_mesh)
+                                     if cfg_mesh else None))
             if not vrep.ok:
                 base.update(valid=False, error="verifier: " + "; ".join(
                     str(v) for v in vrep.errors[:3]))
@@ -883,7 +969,7 @@ def tune(program: Program, *, backend: Any = None,
             if flops_cache is None:
                 flops_cache = block_flops(program, an.shapes)
             base.update(predict_cost(pl, cfg, flops_cache, hw=pricing_hw,
-                                     shapes=an.shapes))
+                                     shapes=an.shapes, mesh=cfg_mesh))
             # remaining objective columns (energy_j already arrived with
             # the cost terms): analytic_s re-prices the counters with the
             # DEFAULT constants — the predictor's anchor feature and the
@@ -943,7 +1029,10 @@ def tune(program: Program, *, backend: Any = None,
             same = first.setdefault(launch_keys[r["label"]], r)
             if same is r:
                 cfg = _cfg_from_dict(r["config"])
-                wall, kern = _measure(plans[r["label"]], cfg, be, reps)
+                ctx = mesh_ctx.get(cfg.mesh_placement)
+                wall, kern = _measure(plans[r["label"]], cfg, be, reps,
+                                      placement=(ctx["specs"] if ctx
+                                                 else None))
                 n_measured += 1
             else:
                 # the best-ranked class of the same launches was measured
@@ -964,7 +1053,8 @@ def tune(program: Program, *, backend: Any = None,
     if calibrate and measured_survivors:
         calibration = _calibrate(measured_survivors, pricing_hw)
         if calibration["accepted"] and calibration["fitted"] and tc:
-            tc.store_calibration(dc_key, HW, calibration["fitted"])
+            if _is_writer(be):
+                tc.store_calibration(dc_key, HW, calibration["fitted"])
 
     # accumulate this program's measured rows into the device-class
     # store — the training set future programs' cold starts fit from.
@@ -972,7 +1062,7 @@ def tune(program: Program, *, backend: Any = None,
     # labeling a different stream count with the same seconds would
     # teach the model the knob is free when it merely wasn't separable
     # here.
-    if tc is not None and measured_survivors:
+    if tc is not None and measured_survivors and _is_writer(be):
         tc.add_measured_rows(
             dc_key, HW, prog_fp, program.name,
             [dict(candidate_features(r), measured_s=r["measured_s"],
@@ -1002,7 +1092,8 @@ def tune(program: Program, *, backend: Any = None,
                              rank_corr_predictor=corr_p,
                              accepted=corr_p >= corr_a)
             if predictor["accepted"] and predictor_source == "fit":
-                tc.store_predictor(dc_key, HW, predictor_model)
+                if _is_writer(be):
+                    tc.store_predictor(dc_key, HW, predictor_model)
 
     # merged configs inherit their survivor's measurements
     by_label = {r["label"]: r for r in valid}
@@ -1037,6 +1128,9 @@ def tune(program: Program, *, backend: Any = None,
 
     chosen_cfg = _cfg_from_dict(chosen["config"])
     best = plans[chosen["alias_of"] or chosen["label"]]
+    chosen_mesh = (
+        _mesh_record(be, mesh_ctx[chosen_cfg.mesh_placement])
+        if chosen_cfg.mesh_placement in mesh_ctx else None)
     best.meta["tuning"] = {
         "chosen": chosen["label"],
         "objective": objective,
@@ -1047,18 +1141,20 @@ def tune(program: Program, *, backend: Any = None,
         "calibration": calibration,
         "predictor": predictor,
         "kernel_variants": chosen_cfg.variants_map(),
-        "mesh": None,
+        "mesh": chosen_mesh,
         "pruned_invalid": sum(
             1 for r in records
             if not r["valid"] and str(r["error"]).startswith("verifier:")),
         "candidates": valid + [r for r in records if not r["valid"]],
     }
+    if chosen_mesh is not None:
+        best.meta["mesh"] = chosen_mesh
     # the winner's full verdict (lints included) — the per-class vet
     # above ran error-only
     vrep = verify_plan(
         best, donate=chosen["config"]["donate"] and be.supports_donation,
         kernel_variants=chosen_cfg.variants_map() or None,
-        shapes=an.shapes)
+        shapes=an.shapes, mesh=chosen_mesh)
     best.meta["verify"] = vrep.meta_record()
     best.meta["fuse_loops"] = chosen["config"]["fuse_loops"]
     best.meta["donate"] = chosen["config"]["donate"]
@@ -1070,6 +1166,9 @@ def tune(program: Program, *, backend: Any = None,
         "fingerprint": fp,
     }
 
-    if tc is not None and n_measured:
+    if tc is not None and n_measured and _is_writer(be):
         tc.store(slot, fp, {"tuning": best.meta["tuning"]})
+    barrier = getattr(be, "barrier", None)
+    if barrier is not None:
+        barrier()           # no rank reads the cache before it is written
     return best

@@ -8,14 +8,16 @@ batch i+1, pins it and copies it to the device on a stream of its own
 while step i runs (advancedload); ``__next__`` makes the consumer's
 stream wait for that copy and marks each tensor as used there
 (``record_stream``), so the caching allocator cannot hand a batch's
-memory to another tensor before the step that reads it is done.  Mesh
-shardings (the reference's ``shardings=``) come with the mesh slice.
+memory to another tensor before the step that reads it is done.  With
+``shardings`` (a dict of ``distributed.NamedSharding`` per batch key,
+the reference's ``shardings=``) each rank copies only its shard of each
+batch array on that stream and gets a DTensor at the key's placements.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -74,15 +76,19 @@ def _device(device) -> torch.device:
 class PrefetchIterator:
     """Device prefetch ``depth`` batches ahead (advancedload).
 
-    ``device`` defaults to ``cuda`` and raises without a card.
-    ``state_dict``/``restore`` round-trip the cursor for
-    checkpoint/restart."""
+    ``device`` defaults to ``cuda`` (or the shardings' mesh device) and
+    raises without a card.  ``state_dict``/``restore`` round-trip the
+    cursor for checkpoint/restart."""
 
     def __init__(self, source: SyntheticLM, start_index: int = 0,
-                 depth: int = 2, device=None):
+                 depth: int = 2, device=None,
+                 shardings: Optional[Dict[str, Any]] = None):
         self.source = source
         self.index = start_index
         self.depth = depth
+        self.shardings = shardings
+        if device is None and shardings:
+            device = next(iter(shardings.values())).mesh.device_type
         self.device = _device(device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -93,15 +99,27 @@ class PrefetchIterator:
 
     def _put_device(self, host_batch):
         """(device batch, the event its copies complete at, or None)."""
+        shapes = {k: v.shape for k, v in host_batch.items()}
+        if self.shardings is not None:
+            from ..distributed.sharding import host_shard
+            host_batch = {k: np.ascontiguousarray(host_shard(
+                v, self.shardings[k].mesh, self.shardings[k].placements))
+                for k, v in host_batch.items()}
         tensors = {k: torch.from_numpy(v) for k, v in host_batch.items()}
-        if self._stream is None:
-            return tensors, None
-        with torch.cuda.stream(self._stream):
-            dev = {k: t.pin_memory().to(self.device, non_blocking=True)
-                   for k, t in tensors.items()}
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
-        return dev, ready
+        ready = None
+        if self._stream is not None:
+            with torch.cuda.stream(self._stream):
+                tensors = {k: t.pin_memory().to(self.device,
+                                                non_blocking=True)
+                           for k, t in tensors.items()}
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+        if self.shardings is not None:
+            from ..distributed.sharding import wrap_shard
+            tensors = {k: wrap_shard(t, self.shardings[k].mesh,
+                                     self.shardings[k].placements, shapes[k])
+                       for k, t in tensors.items()}
+        return tensors, ready
 
     def _producer(self):
         idx = self.index
@@ -124,7 +142,8 @@ class PrefetchIterator:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             for t in batch.values():
-                t.record_stream(stream)
+                (t.to_local() if self.shardings is not None
+                 else t).record_stream(stream)
         self.index = idx + 1
         return batch
 

@@ -4,7 +4,10 @@ These fold the model layouts into the kernel layouts.  They take torch
 tensors: CUDA tensors reach the CUDA kernel, CPU tensors its plain
 version.  ``flash_attention`` also takes numpy arrays, which host blocks
 and the numpy backend pass: those run the plain version on the CPU and
-come back as numpy.
+come back as numpy.  They take no DTensor: the model path calls them on
+each rank's own shards, inside ``local_map``, and the executor makes a
+kernel-tagged block's DTensor inputs whole before its body runs
+(``core.executor.kernel_fn``).
 """
 from __future__ import annotations
 

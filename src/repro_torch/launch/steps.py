@@ -1,5 +1,5 @@
 """Step builders: abstract input specs and the step functions of every
-(arch × shape) cell on one device.
+(arch × shape × mesh) cell.
 
 The port of ``src/repro/launch/steps.py``.  A train cell is the
 reference's ``train_step``: value and gradient of ``Transformer.loss``
@@ -7,8 +7,17 @@ reference's ``train_step``: value and gradient of ``Transformer.loss``
 update, in place (the reference donates its params and state).  Prefill
 and decode cells are thin wrappers over ``prefill`` and ``decode_step``
 with greedy ``argmax``.  The abstract arguments are ``meta`` tensors.
-Meshes (``mesh``, ``moe_ep``, ``fsdp_layers``, ``seq_shard``) and
-lowering (``CellArtifacts.lower``) come with the mesh slice.
+
+With a ``mesh`` (a ``DeviceMesh``) the params, the optimizer state (with
+Adafactor's factored ``vr``/``vc``), the batch and the decode cache are
+placed by the sharding rules (``CellArtifacts.in_shardings``; ``place``
+puts concrete values there), the step runs with a ``MeshPolicy``, and
+the abstract arguments are ``meta`` DTensors.  ``CellArtifacts.lower``
+is the port's analogue of lowering: one run of the step on those
+arguments under ``roofline.analysis.collective_trace`` (a
+``CommDebugMode``), which returns the per-device bytes of params,
+optimizer state and cache, the per-device FLOPs and the collectives,
+and allocates nothing.
 """
 from __future__ import annotations
 
@@ -17,14 +26,18 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..configs import ArchConfig, ShapeSpec
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import (MeshPolicy, NamedSharding, batch_specs,
+                                    cache_shardings, is_dtensor, make_rules,
+                                    mesh_shape, place, place_leaf,
+                                    tree_shardings)
 from ..models import Transformer
-from ..optim import default_optimizer, offloaded_optimizer
+from ..optim import default_optimizer, offload_shardings, offloaded_optimizer
 from ..tree import leaves, unflatten
 
 __all__ = ["input_specs", "build_cell", "CellArtifacts", "value_and_grad",
            "train_step"]
-
-_MESH = "comes with the mesh slice of the port"
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec
@@ -54,23 +67,74 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec
     return out
 
 
+def _is_sharding(x) -> bool:
+    return isinstance(x, NamedSharding)
+
+
+def _local_bytes(tree) -> int:
+    """Bytes of this rank's shards of ``tree`` (whole plain tensors)."""
+    total = 0
+    for t in leaves(tree):
+        if not torch.is_tensor(t):
+            continue
+        loc = t.to_local() if is_dtensor(t) else t
+        total += loc.numel() * loc.element_size()
+    return total
+
+
 class CellArtifacts:
-    """One (arch × shape) cell: its step function, abstract arguments,
-    the arguments it updates in place (the reference's donated ones), and
-    metadata."""
+    """One (arch × shape × mesh) cell: its step function, abstract
+    arguments, the arguments it updates in place (the reference's donated
+    ones), their shardings (``None`` off a mesh) and metadata."""
 
     def __init__(self, fn, args_abstract: Tuple[Any, ...],
-                 donate: Tuple[int, ...], meta: Dict[str, Any]):
+                 donate: Tuple[int, ...], meta: Dict[str, Any],
+                 in_shardings=None):
         self.fn = fn
         self.args_abstract = args_abstract
         self.donate = donate
         self.meta = meta
+        self.in_shardings = in_shardings
 
-    def lower(self):
-        raise NotImplementedError(f"lowering a cell onto a mesh {_MESH}")
+    def place(self, *args):
+        """Concrete global arguments (equal on every rank) placed by
+        ``in_shardings``; themselves off a mesh."""
+        if self.in_shardings is None:
+            return args
+        return tuple(a if s is None else place(a, s)
+                     for a, s in zip(args, self.in_shardings))
+
+    def lower(self) -> Dict[str, Any]:
+        """One run of the step on the abstract (``meta``) arguments under
+        ``collective_trace``.  Returns the per-device bytes of the params,
+        the optimizer state (host-resident under ``offload_opt``) and the
+        cache, the per-device FLOPs and the collective records."""
+        from ..roofline.analysis import trace_step
+        args = self.args_abstract
+        rec = trace_step(self.fn, *args)
+        kind = self.meta["kind"]
+        out = {"param_bytes": _local_bytes(args[0]),
+               "opt_bytes": _local_bytes(args[1]) if kind == "train" else 0,
+               "cache_bytes": _local_bytes(args[1]) if kind == "decode"
+               else 0,
+               "opt_on_host": bool(self.meta.get("offload_opt")),
+               **rec}
+        return out
 
 
-def value_and_grad(model: Transformer, params, batch, grad_accum: int = 1):
+def _micro(t, i: int, n: int):
+    """Micro-batch i of n along the first axis; a DTensor splits its own
+    rows (each micro-batch stays sharded as the batch is)."""
+    if is_dtensor(t):
+        loc = t.to_local()
+        loc = loc.reshape((n, loc.shape[0] // n) + loc.shape[1:])[i]
+        return DTensor.from_local(loc, t.device_mesh, t.placements,
+                                  run_check=False)
+    return t.reshape((n, t.shape[0] // n) + t.shape[1:])[i]
+
+
+def value_and_grad(model: Transformer, params, batch, grad_accum: int = 1,
+                   policy=None):
     """(loss, metrics, grads) of ``model.loss`` at ``params``, each of
     which it marks as requiring grad.  With
     ``grad_accum`` > 1 the batch splits into that many micro-batches along
@@ -81,19 +145,17 @@ def value_and_grad(model: Transformer, params, batch, grad_accum: int = 1):
     for p in flat:
         p.requires_grad_(True)
     if grad_accum == 1:
-        loss, metrics = model.loss(params, batch)
+        loss, metrics = model.loss(params, batch, policy)
         grads = torch.autograd.grad(loss, flat)
         return (loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
                                 for k, v in metrics.items()},
                 unflatten(params, grads))
-    mbs = [{k: t.reshape((grad_accum, t.shape[0] // grad_accum)
-                         + t.shape[1:])[i] for k, t in batch.items()}
+    mbs = [{k: _micro(t, i, grad_accum) for k, t in batch.items()}
            for i in range(grad_accum)]
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in flat]
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
     total = 0.0
     for mb in mbs:
-        loss, _ = model.loss(params, mb)
+        loss, _ = model.loss(params, mb, policy)
         for a, g in zip(acc, torch.autograd.grad(loss, flat)):
             a.add_(g.float())
         total = total + loss.detach()
@@ -103,12 +165,32 @@ def value_and_grad(model: Transformer, params, batch, grad_accum: int = 1):
 
 
 def train_step(model: Transformer, opt, params, opt_state, batch,
-               grad_accum: int = 1):
+               grad_accum: int = 1, policy=None):
     """One optimizer step.  Returns (params, opt_state, metrics), the
     first two updated in place; the metrics stay on the device."""
-    loss, metrics, grads = value_and_grad(model, params, batch, grad_accum)
+    loss, metrics, grads = value_and_grad(model, params, batch, grad_accum,
+                                          policy)
     params, opt_state = opt.update(grads, opt_state, params)
     return params, opt_state, {"loss": loss, **metrics}
+
+
+def _opt_state_shardings(mesh, aparams, p_sh, opt_name: str):
+    """Optimizer-state shardings mirroring the param shardings."""
+    rep = NamedSharding(mesh, ())
+    if opt_name == "adamw":
+        return {"m": p_sh, "v": p_sh, "step": rep}
+
+    def factor_sh(p, s):
+        spec = tuple(s.spec) + (None,) * (p.ndim - len(tuple(s.spec)))
+        if p.ndim >= 2:
+            return {"vr": NamedSharding(mesh, spec[:-1]),
+                    "vc": NamedSharding(mesh, spec[:-2] + spec[-1:])}
+        return {"v": s}
+    flat_p = leaves(aparams)
+    flat_s = leaves(p_sh, is_leaf=_is_sharding)
+    return {"factors": unflatten(aparams, [factor_sh(p, s) for p, s
+                                           in zip(flat_p, flat_s)]),
+            "step": rep}
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
@@ -119,44 +201,89 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
                seq_shard: bool = False) -> CellArtifacts:
     """The reference's signature.  ``remat`` is taken and not read, as in
     the reference: the loss recomputes each layer in the backward
-    either way."""
-    if mesh is not None or moe_ep or fsdp_layers or seq_shard:
-        raise NotImplementedError(f"mesh cells (mesh, moe_ep, fsdp_layers, "
-                                  f"seq_shard) {_MESH}")
-    model = Transformer(cfg, use_pallas=use_pallas, kv_quant=kv_quant)
+    either way.  ``mesh`` is a ``DeviceMesh`` (``launch.mesh.make_mesh``);
+    ``moe_ep``, ``fsdp_layers`` and ``seq_shard`` need one."""
+    if mesh is None and (moe_ep or fsdp_layers or seq_shard):
+        raise ValueError("moe_ep, fsdp_layers and seq_shard shard a cell: "
+                         "they need a mesh")
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(launch.mesh.make_mesh), not "
+                            f"{type(mesh).__name__}")
+    model = Transformer(cfg, use_pallas=use_pallas, moe_ep=moe_ep,
+                        kv_quant=kv_quant)
     kind = shape.kind
     aparams = model.abstract_params()
     ispecs = input_specs(cfg, shape)
     meta = {"arch": cfg.name, "shape": shape.name, "kind": kind,
-            "kv_quant": kv_quant, "use_pallas": use_pallas}
+            "kv_quant": kv_quant, "use_pallas": use_pallas,
+            "offload_opt": offload_opt, "fsdp_layers": fsdp_layers,
+            "moe_ep": moe_ep}
+    policy = rules = p_sh = None
+    if mesh is not None:
+        rules = make_rules(mesh, kind, fsdp_layers=fsdp_layers)
+        policy = MeshPolicy(rules, cfg, seq_shard=seq_shard)
+        p_sh = tree_shardings(rules, aparams, model.logical_axes())
+        meta.update(mesh_shape=mesh_shape(mesh), dropped=rules.dropped)
+        aparams = place(aparams, p_sh)
+
+    def sharded(tree, sh):
+        return tree if mesh is None else place(tree, sh)
 
     if kind == "train":
         opt = default_optimizer(cfg)
+        aopt = opt.init(model.abstract_params())
+        o_sh = None
+        if mesh is not None:
+            o_sh = _opt_state_shardings(mesh, model.abstract_params(), p_sh,
+                                        opt.name)
+            if offload_opt:
+                o_sh = offload_shardings(o_sh)
+            aopt = place(aopt, o_sh)
         if offload_opt:
             opt = offloaded_optimizer(opt)
         meta["optimizer"] = opt.name
-        aopt = opt.init(aparams)
+        b_sh = None if mesh is None else batch_specs(rules, cfg, kind, ispecs)
 
         def fn(params, opt_state, batch):
             return train_step(model, opt, params, opt_state, batch,
-                              grad_accum)
-        return CellArtifacts(fn=fn, args_abstract=(aparams, aopt, ispecs),
-                             donate=(0, 1), meta=meta)
+                              grad_accum, policy)
+        return CellArtifacts(fn=fn, args_abstract=(aparams, aopt,
+                                                   sharded(ispecs, b_sh)),
+                             donate=(0, 1), meta=meta,
+                             in_shardings=None if mesh is None
+                             else (p_sh, o_sh, b_sh))
 
     max_seq = shape.seq_len
     if kind == "prefill":
+        b_sh = None if mesh is None else batch_specs(rules, cfg, kind, ispecs)
+
         def prefill(params, batch):
-            return model.prefill(params, batch, max_seq=max_seq)
-        return CellArtifacts(fn=prefill, args_abstract=(aparams, ispecs),
-                             donate=(), meta=meta)
+            return model.prefill(params, batch, max_seq=max_seq,
+                                 policy=policy)
+        return CellArtifacts(fn=prefill, args_abstract=(
+            aparams, sharded(ispecs, b_sh)), donate=(), meta=meta,
+            in_shardings=None if mesh is None else (p_sh, b_sh))
 
     acache = model.init_cache(shape.global_batch, max_seq, device="meta")
     pos_spec = ispecs.pop("pos")
+    c_sh = tok_sh = pos_sh = None
+    if mesh is not None:
+        c_sh = cache_shardings(rules, acache)
+        tok_sh = batch_specs(rules, cfg, kind, ispecs)
+        pos_sh = batch_specs(rules, cfg, kind, {"pos": pos_spec})["pos"]
 
     def serve_step(params, cache, batch, pos):
-        logits, cache = model.decode_step(params, cache, batch, pos)
+        logits, cache = model.decode_step(params, cache, batch, pos,
+                                          policy=policy)
         # greedy next token: the serving driver feeds it back
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
-    return CellArtifacts(fn=serve_step,
-                         args_abstract=(aparams, acache, ispecs, pos_spec),
-                         donate=(1,), meta=meta)
+    args = (aparams, acache, ispecs, pos_spec)
+    if mesh is not None:
+        args = (aparams, place(acache, c_sh), place(ispecs, tok_sh),
+                place_leaf(pos_spec, pos_sh))
+    return CellArtifacts(fn=serve_step, args_abstract=args, donate=(1,),
+                         meta=meta, in_shardings=None if mesh is None
+                         else (p_sh, c_sh, tok_sh, pos_sh))

@@ -18,9 +18,12 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
+from ..distributed.sharding import (from_global, is_dtensor, like,
+                                    local_apply, merge_dims, split_dim)
 from ..kernels import ops as kops
-from .layers import P, apply_rope, no_policy, rms_norm
+from .layers import P, acts, apply_rope, rms_norm
 
 __all__ = ["attn_spec", "attn_apply", "attn_decode", "init_kv_cache",
            "quantize_kv_cache", "blockwise_attention", "decode_attention",
@@ -57,10 +60,13 @@ def attn_spec(cfg, prefix_shape=(), prefix_names=()) -> Dict[str, P]:
     return spec
 
 
-def _project_qkv(params, x, cfg, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["w_k"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["w_v"])
+def _project_qkv(params, x, cfg, positions, policy=None):
+    q = torch.einsum("bsd,dhk->bshk", x,
+                     acts(policy, params["w_q"], "w_attn_q"))
+    k = torch.einsum("bsd,dhk->bshk", x,
+                     acts(policy, params["w_k"], "w_attn_kv"))
+    v = torch.einsum("bsd,dhk->bshk", x,
+                     acts(policy, params["w_v"], "w_attn_kv"))
     if "b_q" in params:
         q = q + params["b_q"]
         k = k + params["b_k"]
@@ -124,22 +130,37 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _fold_heads(q, K: int, G: int):
+    """(B, S, H, D) → (B, S, K, G, D).  On a mesh, heads split over an
+    axis that does not divide K are gathered first (``split_dim``)."""
+    return split_dim(q, 2, (K, G))
+
+
 def attn_apply(params, x, cfg, positions, *, policy=None, window: int = 0,
                use_pallas: bool = False):
     """Training / prefill self-attention.  x: (B, S, d_model).  Returns
     (out, (k, v)): the roped keys and values, which a prefill packs into
     its cache."""
-    no_policy(policy)
     B, S, _ = x.shape
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    q = q.reshape(B, S, K, G, cfg.d_head)
+    q, k, v = _project_qkv(params, x, cfg, positions, policy)
+    q = acts(policy, _fold_heads(q, K, G), "q5")
+    k = acts(policy, k, "kv4")
+    v = acts(policy, v, "kv4")
+    if is_dtensor(q):
+        # the kernel runs on this rank's rows and KV heads (with their
+        # query groups): k and v take q's sharding of (B, S, K)
+        k = k.redistribute(placements=q.placements)
+        v = v.redistribute(placements=q.placements)
     if use_pallas:
-        o = kops.flash_attention(q, k, v, causal=True, window=window)
+        def core(q, k, v):
+            return kops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        o = blockwise_attention(q, k, v, causal=True, window=window)
-    o = o.reshape(B, S, cfg.n_heads, cfg.d_head)
-    return torch.einsum("bshk,hkd->bsd", o, params["w_o"]), (k, v)
+        def core(q, k, v):
+            return blockwise_attention(q, k, v, causal=True, window=window)
+    o = merge_dims(local_apply(core, "like", q, k, v), 2, 2)
+    w_o = acts(policy, params["w_o"], "w_attn_out")
+    return torch.einsum("bshk,hkd->bsd", o, w_o), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -229,28 +250,102 @@ def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window: int = 0):
 def attn_decode(params, x, cfg, cache, pos, *, policy=None, window: int = 0):
     """One decode step.  x: (B, 1, d_model); pos: (B,) int32 current index.
     cache: dict(k, v[, k_scale, v_scale], pos) for THIS layer, written in
-    place.  Returns (out (B, 1, d), cache)."""
-    no_policy(policy)
+    place.  Returns (out (B, 1, d), cache).
+
+    On a mesh (DTensor cache) each rank writes and attends over its own
+    cache shard: the sequence dim sharded over "model" is
+    sequence-parallel decode, whose softmax statistics and outputs are
+    all-reduced over "model" (``_decode_core``)."""
     B = x.shape[0]
     K, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    q, k, v = _project_qkv(params, x, cfg, pos[:, None])
+    q, k, v = _project_qkv(params, x, cfg, like(pos[:, None], x), policy)
+    q = _fold_heads(q, K, G)
     T = cache["k"].shape[1]
+    names = [n for n in ("k", "v", "k_scale", "v_scale", "pos")
+             if n in cache]
+    group = None
+    if is_dtensor(cache["k"]):
+        # q, the new k/v and pos take the cache's batch sharding and are
+        # whole over "model"; the cache's T shard is this rank's slots
+        mesh = cache["k"].device_mesh
+        plc = cache["pos"].placements
+        rows = tuple(p if isinstance(p, Shard) and p.dim == 0
+                     else Replicate() for p in plc)
+        q, k, v = (t.redistribute(placements=rows) for t in (q, k, v))
+        pos = like(pos, cache["pos"])
+        base = from_global(torch.arange(T, device=pos.device)[None], mesh,
+                           tuple(Shard(1) if p == Shard(1) else Replicate()
+                                 for p in plc))
+        if Shard(1) in plc:
+            group = mesh.get_group(mesh.mesh_dim_names[plc.index(Shard(1))])
+    else:
+        base = None
+
+    def core(q, k, v, pos, base, *bufs):
+        c = dict(zip(names, bufs))
+        return _decode_core(q, k, v, pos, None if base is None else base[0],
+                            c, T, window, group)
+    o = local_apply(core, "like", q, k, v, pos, base,
+                    *(cache[n] for n in names))
+    o = merge_dims(o, 2, 2)
+    w_o = acts(policy, params["w_o"], "w_attn_out")
+    return torch.einsum("bshk,hkd->bsd", o, w_o), cache
+
+
+def _decode_core(q, k, v, pos, slots, cache, T: int, window: int, group):
+    """Write one token's k/v into ``cache`` (in place) and attend.  On a
+    mesh the cache holds the global slots ``slots`` of a T-slot cache
+    (``None``: all of them) and a row whose slot lies elsewhere writes
+    nothing here.  With ``group`` (the cache's T dim sharded over it) the
+    softmax is combined across the group's ranks: max, sum and outputs
+    all-reduced."""
+    B = q.shape[0]
     slot = (pos % T) if window else pos              # ring buffer for local
-    b_idx = torch.arange(B, device=x.device)
+    if slots is None:
+        col, n = slot, T
+    else:
+        n = slots.shape[0]
+        col = slot - slots[0]
+        col = torch.where(col < 0, torch.full_like(col, n), col)
+    b_idx = torch.arange(B, device=q.device)
     if "k_scale" in cache:
         kq, ks = _quantize_kv(k[:, 0])
         vq, vs = _quantize_kv(v[:, 0])
         for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
                           ("v_scale", vs)):
-            drop_rows_set(cache[name], b_idx, slot, val, T)
+            drop_rows_set(cache[name], b_idx, col, val, n)
         att_k = cache["k"].float() * cache["k_scale"][..., None]
         att_v = cache["v"].float() * cache["v_scale"][..., None]
     else:
-        drop_rows_set(cache["k"], b_idx, slot, k[:, 0], T)
-        drop_rows_set(cache["v"], b_idx, slot, v[:, 0], T)
+        drop_rows_set(cache["k"], b_idx, col, k[:, 0], n)
+        drop_rows_set(cache["v"], b_idx, col, v[:, 0], n)
         att_k, att_v = cache["k"], cache["v"]
-    drop_rows_set(cache["pos"], b_idx, slot, pos, T)
-    q = q.reshape(B, 1, K, G, cfg.d_head)
-    o = decode_attention(q, att_k, att_v, cache["pos"], pos, window=window)
-    o = o.reshape(B, 1, cfg.n_heads, cfg.d_head)
-    return torch.einsum("bshk,hkd->bsd", o, params["w_o"]), cache
+    drop_rows_set(cache["pos"], b_idx, col, pos, n)
+    if group is None:
+        return decode_attention(q, att_k, att_v, cache["pos"], pos,
+                                window=window)
+    return _decode_attention_split(q, att_k, att_v, cache["pos"], pos,
+                                   window, group)
+
+
+def _decode_attention_split(q, k_cache, v_cache, cache_pos, pos, window,
+                            group):
+    """``decode_attention`` over a cache whose slots are split across
+    ``group``: each rank's partial softmax, then the max, the sum and
+    the weighted values all-reduced (Flash-Decoding's combine)."""
+    from torch.distributed import _functional_collectives as funcol
+    D = q.shape[-1]
+    scale = 1.0 / (D ** 0.5)
+    s = torch.einsum("bqkgd,btkd->bkgqt", (q * scale).float(),
+                     k_cache.float())                        # (B,K,G,1,T)
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window:
+        valid = valid & (cache_pos > (pos[:, None] - window))
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    m = funcol.all_reduce(s.amax(dim=-1, keepdim=True), "max", group)
+    p = torch.exp(s - m)
+    den = funcol.all_reduce(p.sum(dim=-1, keepdim=True), "sum", group)
+    o = funcol.all_reduce(torch.einsum("bkgqt,btkd->bqkgd", p,
+                                       v_cache.float()), "sum", group)
+    return (o / den.permute(0, 3, 1, 2, 4)).to(q.dtype)

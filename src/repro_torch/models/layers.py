@@ -2,8 +2,10 @@
 
 The port of ``src/repro/models/layers.py``.  Params are plain nested dicts
 of tensors, made from a tree of ``P`` specs.  ``P`` keeps the reference's
-logical axes, which a later mesh slice maps onto devices; this slice runs
-on one device, so only ``policy=None`` is taken (``no_policy``).
+logical axes, which ``distributed/sharding.py`` maps onto a mesh.  A
+``policy`` (``distributed.MeshPolicy``) redistributes DTensor activations
+and weights at the reference's tagged points (``acts``); ``policy=None``,
+or plain tensors, leave them as they are.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["P", "init_tree", "no_policy", "rms_norm", "gelu",
+__all__ = ["P", "init_tree", "axes_tree", "acts", "rms_norm", "gelu",
            "apply_rope", "rope_freqs", "ffn_apply", "ffn_spec",
            "cross_entropy"]
 
@@ -55,11 +57,15 @@ def init_tree(spec: Dict[str, Any], generator: torch.Generator, device,
     return walk(spec)
 
 
-def no_policy(policy) -> None:
-    """Sharding hints wait for the mesh slice: only ``None`` is taken."""
-    if policy is not None:
-        raise NotImplementedError("sharding policies come with the mesh "
-                                  "slice of the port; pass policy=None")
+def axes_tree(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """The logical-axis tuples of a spec tree, parallel to its params."""
+    return {k: axes_tree(v) if isinstance(v, dict) else v.axes
+            for k, v in spec.items()}
+
+
+def acts(policy, x, kind: str):
+    """``policy.acts(x, kind)``, or ``x`` when there is no policy."""
+    return x if policy is None else policy.acts(x, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +95,14 @@ def rope_freqs(d_head: int, theta: float, device=None):
 
 
 def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, D); positions: (..., S) integer."""
+    """x: (..., S, H, D); positions: (..., S) integer.  On DTensors it
+    runs on each rank's shards (heads and batch rows are independent),
+    with ``positions`` sharded as ``x``'s leading dims."""
+    from ..distributed.sharding import local_apply
+    return local_apply(lambda x, p: _rope(x, p, theta), "like", x, positions)
+
+
+def _rope(x, positions, theta: float):
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, device=x.device)            # (D/2,)
     ang = positions[..., None].float() * freqs               # (..., S, D/2)
@@ -118,15 +131,18 @@ def ffn_spec(d_model: int, d_ff: int, activation: str,
 
 
 def ffn_apply(params, x, activation: str, policy=None):
-    no_policy(policy)
+    w_up = acts(policy, params["w_up"], "w_ffn_in")
+    w_down = acts(policy, params["w_down"], "w_ffn_out")
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else gelu
-        h = act(x @ params["w_gate"]) * (x @ params["w_up"])
+        w_gate = acts(policy, params["w_gate"], "w_ffn_in")
+        h = act(x @ w_gate) * (x @ w_up)
     elif activation == "sq_relu":
-        h = torch.square(F.relu(x @ params["w_up"]))
+        h = torch.square(F.relu(x @ w_up))
     else:
         raise ValueError(activation)
-    return h @ params["w_down"]
+    h = acts(policy, h, "ffn_hidden")
+    return h @ w_down
 
 
 def cross_entropy(logits, labels, ignore_label: int = -1):

@@ -34,8 +34,13 @@ one does instead:
   that takes ``n`` assignments (each of the ``n`` adds rounds by at most
   half an ulp of a partial sum below ``n/(T*k)``).
 
-``moe_apply_ep`` (the reference's expert-parallel ``shard_map``) waits
-for the mesh slice of the port.
+On a mesh (DTensor inputs) ``moe_apply`` routes the whole batch on every
+rank: tokens and experts are gathered to every rank (replicated), so
+the routing and the capacity are the unsharded ones.  ``moe_apply_ep``
+is the reference's expert-parallel ``shard_map`` as a ``local_map``:
+each "model" rank owns ``E / n_model`` experts and its batch rows, the
+FSDP gather of its expert weights over "data" is an all-gather, and the
+combine is one all-reduce over "model" in the activations' type.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import P, ffn_apply, ffn_spec, gelu, no_policy
+from ..distributed.sharding import batch_axes, is_dtensor, local_apply
+from .layers import P, ffn_apply, ffn_spec, gelu
 
 __all__ = ["moe_spec", "moe_apply", "moe_apply_ep"]
 
@@ -80,6 +86,15 @@ def _route(router, xf, top_k: int):
     return probs, gate, expert
 
 
+def _counts(flat_e, E: int):
+    """Assignments per expert: ``bincount`` (which has no ``meta``
+    kernel; there an ``index_add_`` of ones gives the shape)."""
+    if flat_e.is_meta:
+        return torch.zeros(E, dtype=torch.int64, device="meta").index_add_(
+            0, flat_e, torch.ones_like(flat_e))
+    return torch.bincount(flat_e, minlength=E)
+
+
 def _dispatch(flat_e, counts, capacity: int):
     """Sort the T*k assignments by expert (stably) and rank each within
     its expert's run.  Returns, in sorted order: the permutation
@@ -111,7 +126,12 @@ def _experts(ew, buf, activation: str):
 def moe_apply(params, x, cfg, *, policy=None) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
     """x: (B, S, d).  Returns (out (B, S, d), router aux loss (fp32))."""
-    no_policy(policy)
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        rep = (Replicate(),) * x.device_mesh.ndim
+        return local_apply(lambda x, p: moe_apply(p, x, cfg), (rep, rep),
+                           x.redistribute(placements=rep),
+                           _tree_redistribute(params, rep))
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -122,7 +142,7 @@ def moe_apply(params, x, cfg, *, policy=None) -> Tuple[torch.Tensor,
     # --- routing ----------------------------------------------------------
     probs, gate, expert = _route(params["router"], xf, k)      # (T, k)
     flat_e = expert.reshape(-1)                               # (T*k,)
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _counts(flat_e, E)
     # load-balancing aux loss (Switch):  E * sum_e f_e * p_e
     aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (T * k)))
 
@@ -146,7 +166,96 @@ def moe_apply(params, x, cfg, *, policy=None) -> Tuple[torch.Tensor,
     return out.reshape(B, S, d), aux
 
 
+def _tree_redistribute(tree, plc):
+    return {k: _tree_redistribute(v, plc) if isinstance(v, dict)
+            else v.redistribute(placements=plc) for k, v in tree.items()}
+
+
 def moe_apply_ep(params, x, cfg, mesh, *, policy=None):
-    """The reference's expert-parallel MoE (``shard_map`` over a mesh)."""
-    raise NotImplementedError("moe_apply_ep (expert-parallel MoE) comes with "
-                              "the mesh slice of the port")
+    """Expert-parallel MoE on ``mesh`` (a ``DeviceMesh`` with a "model"
+    axis); x and params are DTensors.  Returns (out (B, S, d), aux).
+
+    Tokens stay sharded over the batch axes and whole over "model"; each
+    "model" rank j routes its rows, dispatches only to its experts
+    ``[j*E_loc, (j+1)*E_loc)`` and returns partial outputs that one
+    all-reduce over "model" sums.  ``aux`` is the batch shards' mean,
+    counted once across "model"."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    E = cfg.n_experts
+    names = mesh.mesh_dim_names
+    n_model = mesh.size(names.index("model"))
+    if E % n_model:
+        raise ValueError(f"{E} experts do not split over {n_model} "
+                         "model ranks")
+    E_loc = E // n_model
+    j = mesh.get_local_rank("model")
+    b_axes = batch_axes(mesh) or ()
+    n_batch = 1
+    for a in b_axes:
+        n_batch *= mesh.size(names.index(a))
+
+    def plc(batch, model, other=Replicate()):
+        return tuple(batch if a in b_axes else model if a == "model"
+                     else other for a in names)
+    x_plc = plc(Shard(0), Replicate())
+    # the FSDP gather over "data": expert weights whole over the batch
+    # axes, their experts split over "model"
+    w_plc = plc(Replicate(), Shard(0))
+    ew = {n: w.redistribute(placements=w_plc)
+          for n, w in params["experts"].items()}
+    ew_names = sorted(ew)
+    router = params["router"].redistribute(placements=plc(Replicate(),
+                                                          Replicate()))
+    x = x.redistribute(placements=x_plc)
+
+    def body(xl, rl, *ws):
+        return _ep_body(xl, rl, dict(zip(ew_names, ws)), cfg, j, E_loc,
+                        n_batch)
+    from torch.distributed.tensor.experimental import local_map
+    out, aux = local_map(
+        body,
+        out_placements=(plc(Shard(0), Partial()), plc(Partial(), Partial())),
+        in_placements=(x_plc, router.placements) + (w_plc,) * len(ew),
+        in_grad_placements=(plc(Shard(0), Partial()),
+                            plc(Partial(), Partial()))
+        + (plc(Partial(), Shard(0)),) * len(ew),
+        device_mesh=mesh)(x, router, *(ew[n] for n in ew_names))
+    out = out.redistribute(placements=x_plc)
+    aux = aux.redistribute(placements=plc(Replicate(), Replicate()))
+    if cfg.moe_dense_residual:
+        B, S, d = x.shape
+        out = out + ffn_apply(params["dense"], x.reshape(-1, d),
+                              cfg.activation, policy=policy
+                              ).reshape(B, S, d)
+    return out, aux
+
+
+def _ep_body(xl, router, ew, cfg, j: int, E_loc: int, n_batch: int):
+    """One rank's share of ``moe_apply_ep``: its rows, its experts.
+    Returns its partial outputs and its share of the aux loss (the batch
+    mean's term on "model" rank 0, zero elsewhere)."""
+    E, k = cfg.n_experts, cfg.top_k
+    Bl, Sl, d = xl.shape
+    T = Bl * Sl
+    C = _capacity(T, E, k, cfg.capacity_factor)
+    xf = xl.reshape(T, d)
+    dev = xl.device
+    probs, gate, expert = _route(router, xf, k)
+    flat_e = expert.reshape(-1)
+    counts = _counts(flat_e, E)
+    aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (T * k)))
+    order, keep, slot = _dispatch(flat_e, counts, C)
+    se = flat_e[order]
+    keep = keep & (se >= j * E_loc) & (se < (j + 1) * E_loc)
+    slot = torch.where(keep, slot - j * E_loc * C, E_loc * C)
+    buf = torch.zeros((E_loc * C + 1, d), dtype=xl.dtype, device=dev)
+    buf[slot] = xf[order // k]
+    y = _experts(ew, buf[:E_loc * C].reshape(E_loc, C, d),
+                 cfg.activation).reshape(E_loc * C, d)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=dev)
+    keep_u, slot_u = keep[inv], slot[inv]
+    w = torch.where(keep_u, gate.reshape(-1), 0.0)
+    gathered = y[torch.where(keep_u, slot_u, 0)].float() * w[:, None]
+    out = gathered.reshape(T, k, d).sum(dim=1).to(xl.dtype)
+    return out.reshape(Bl, Sl, d), aux * (float(j == 0) / n_batch)

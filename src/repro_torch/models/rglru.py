@@ -19,9 +19,10 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import assign, is_dtensor, like, local_apply
 from ..kernels import ops as kops
 from ..kernels.ref import rglru_scan_ref
-from .layers import P, gelu, no_policy
+from .layers import P, acts, gelu
 
 __all__ = ["rglru_spec", "rglru_apply", "rglru_decode", "init_rglru_cache",
            "rglru_scan_ref", "RGLRU_C"]
@@ -60,8 +61,8 @@ def _conv1d(params, x, width: int, state=None):
     d) previous inputs for decode continuity (zero history if None).
     Returns (out, the last width-1 inputs)."""
     if state is None:
-        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]),
-                          dtype=x.dtype, device=x.device)
+        pad = like(torch.zeros((x.shape[0], width - 1, x.shape[2]),
+                               dtype=x.dtype, device=x.device), x)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -73,18 +74,19 @@ def _conv1d(params, x, width: int, state=None):
 def rglru_apply(params, x, cfg, *, policy=None, use_pallas: bool = False):
     """Training/prefill.  x: (B, T, d).  Returns (out (B, T, d), (h, conv)):
     the last step's fp32 hidden state and the conv window, the layer's
-    decode cache after the prompt."""
-    no_policy(policy)
+    decode cache after the prompt.  On a mesh the scan runs on each
+    rank's own rows and channels (``local_apply``)."""
     u = x @ params["w_x"]
     u, conv_state = _conv1d(params, u, cfg.rglru_conv_width)
     a, b = _gates(params, u, x)
-    if use_pallas:
-        h = kops.rglru_scan(a, b)
-    else:
-        h = rglru_scan_ref(a, b)
+    if is_dtensor(a):
+        b = b.redistribute(placements=a.placements)
+    h = local_apply(kops.rglru_scan if use_pallas else rglru_scan_ref,
+                    "like", a, b)
     state = (h[:, -1].float(), conv_state)
     gate = gelu(x @ params["w_gate"])
-    return (gate * h.to(x.dtype)) @ params["w_out"], state
+    hx = acts(policy, h.to(x.dtype), "rnn_hidden")
+    return (gate * hx) @ params["w_out"], state
 
 
 def init_rglru_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,
@@ -101,7 +103,6 @@ def init_rglru_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,
 def rglru_decode(params, x, cfg, cache, *, policy=None):
     """One step.  x: (B, 1, d); cache: dict(h (B, d) fp32, conv (B, w-1,
     d)) of THIS layer, written in place.  Returns (out, cache)."""
-    no_policy(policy)
     u = x @ params["w_x"]
     u, conv_state = _conv1d(params, u, cfg.rglru_conv_width,
                             state=cache["conv"])
@@ -109,6 +110,6 @@ def rglru_decode(params, x, cfg, cache, *, policy=None):
     h = a[:, 0] * cache["h"] + b[:, 0]                 # (B, d) fp32
     gate = gelu(x @ params["w_gate"])
     out = (gate * h[:, None].to(x.dtype)) @ params["w_out"]
-    cache["h"].copy_(h)
-    cache["conv"].copy_(conv_state)
+    assign(cache["h"], h)
+    assign(cache["conv"], conv_state)
     return out, cache

@@ -19,8 +19,10 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (is_dtensor, like, local_apply,
+                                    merge_dims, moved, replicate, split_dim)
 from ..kernels import ops as kops
-from .layers import P, no_policy, rms_norm
+from .layers import P, acts, rms_norm
 
 __all__ = ["rwkv6_spec", "rwkv6_time_mix", "rwkv6_channel_mix",
            "init_rwkv_cache", "wkv6_scan_ref"]
@@ -94,13 +96,14 @@ def wkv6_scan_ref(r, k, v, w, u):
 
 def rwkv6_time_mix(p, x, cfg, *, x_prev=None, state=None, policy=None,
                    use_pallas: bool = False):
-    """x: (B, T, d).  Returns (out, (new_x_prev, new_state))."""
-    no_policy(policy)
+    """x: (B, T, d).  Returns (out, (new_x_prev, new_state)).  On a mesh
+    the recurrence runs on each rank's own rows and heads
+    (``local_apply``): u and the state take r's sharding of its heads."""
     B, T, d = x.shape
     hs = cfg.rwkv_head_size
     H = d // hs
     if x_prev is None:
-        x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+        x_prev = like(torch.zeros((B, d), dtype=x.dtype, device=x.device), x)
     sx = _token_shift(x, x_prev)
 
     xw = _ddlerp(p, x, sx, "w")
@@ -109,27 +112,35 @@ def rwkv6_time_mix(p, x, cfg, *, x_prev=None, state=None, policy=None,
     xr = _ddlerp(p, x, sx, "r")
     xg = _ddlerp(p, x, sx, "g")
 
-    r = (xr @ p["w_r"]).reshape(B, T, H, hs)
-    k = (xk @ p["w_k"]).reshape(B, T, H, hs)
-    v = (xv @ p["w_v"]).reshape(B, T, H, hs)
+    r = split_dim(xr @ p["w_r"], 2, (H, hs))
+    k = split_dim(xk @ p["w_k"], 2, (H, hs))
+    v = split_dim(xv @ p["w_v"], 2, (H, hs))
     g = F.silu(xg @ p["w_g"])
     dec = p["w0"] + torch.tanh(xw @ p["lora_a_w"]) @ p["lora_b_w"]
-    w = torch.exp(-torch.exp(dec.float())).reshape(B, T, H, hs)
-    u = p["u"].reshape(H, hs)
+    w = split_dim(torch.exp(-torch.exp(dec.float())), 2, (H, hs))
+    u = split_dim(p["u"], 0, (H, hs))
 
+    s_plc = None
+    if is_dtensor(r):
+        k, v, w = (t.redistribute(placements=r.placements)
+                   for t in (k, v, w))
+        u = u.redistribute(placements=moved(r.placements, {2: 0}))
+        s_plc = moved(r.placements, {0: 0, 2: 1})
+        if state is not None:
+            state = state.redistribute(placements=s_plc)
     if state is not None:
         # segment continuation: fold the initial state in via the scan
-        o, new_state = _wkv_with_state(r, k, v, w, u, state)
-    elif use_pallas:
-        o, new_state = kops.wkv6(r, k, v, w, u)
+        o, new_state = local_apply(_wkv_with_state, (r.placements, s_plc)
+                                   if s_plc else None, r, k, v, w, u, state)
     else:
-        o, new_state = wkv6_scan_ref(r, k, v, w, u)
+        scan = kops.wkv6 if use_pallas else wkv6_scan_ref
+        o, new_state = local_apply(scan, (r.placements, s_plc)
+                                   if s_plc else None, r, k, v, w, u)
 
-    o = o.reshape(B, T, d).to(x.dtype)
-    o = rms_norm(o.reshape(B, T, H, hs),
-                 torch.ones((hs,), dtype=x.dtype, device=x.device)
-                 ).reshape(B, T, d) * p["ln_x"]
-    out = (o * g) @ p["w_out"]
+    o = o.to(x.dtype)
+    o = merge_dims(rms_norm(o, replicate(torch.ones(
+        (hs,), dtype=x.dtype, device=x.device), o)), 2, 2) * p["ln_x"]
+    out = acts(policy, (o * g) @ p["w_out"], "embeds")
     return out, (x[:, -1], new_state)
 
 
@@ -137,7 +148,7 @@ def rwkv6_channel_mix(p, x, cfg, *, x_prev=None):
     """Squared-ReLU channel mix with simple token-shift lerp."""
     B, T, d = x.shape
     if x_prev is None:
-        x_prev = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+        x_prev = like(torch.zeros((B, d), dtype=x.dtype, device=x.device), x)
     sx = _token_shift(x, x_prev)
     xx = sx - x
     xk = x + xx * p["mu_k"]

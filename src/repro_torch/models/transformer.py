@@ -35,7 +35,14 @@ The cache trees keep the reference's keys, layer-stacked layouts and
 dtypes, so they compare leaf by leaf.  ``input_embeds`` archs (musicgen)
 take ``{"embeds": (B, S, d)}`` through ``in_proj`` instead of tokens, and
 their head returns ``n_codebooks`` logits a position, (..., n_codebooks,
-vocab).  ``moe_ep`` (expert parallelism) waits for the mesh slice.
+vocab).
+
+On a mesh the params, the batch and the cache are DTensors
+(``distributed/sharding.py``) and every entry point takes a ``policy``
+(``MeshPolicy``) that redistributes at the reference's tagged points;
+the kernels and the scans run on each rank's shards (``local_map``).
+``moe_ep`` takes the expert-parallel MoE (``moe_apply_ep``) in ``loss``
+and ``prefill`` when a policy is given, as the reference does.
 """
 from __future__ import annotations
 
@@ -49,9 +56,11 @@ from torch.utils.checkpoint import checkpoint
 from ..tree import leaves
 from .attention import (attn_apply, attn_decode, attn_spec, init_kv_cache,
                         quantize_kv_cache)
-from .layers import (P, cross_entropy, ffn_apply, ffn_spec, init_tree,
-                     no_policy, rms_norm)
-from .moe import moe_apply, moe_spec
+from ..distributed.sharding import (assign, is_dtensor, like, local_apply,
+                                    moved, split_dim)
+from .layers import (P, acts, axes_tree, cross_entropy, ffn_apply, ffn_spec,
+                     init_tree, rms_norm)
+from .moe import moe_apply, moe_apply_ep, moe_spec
 from .rglru import (init_rglru_cache, rglru_apply, rglru_decode,
                     rglru_spec)
 from .rwkv6 import (init_rwkv_cache, rwkv6_channel_mix, rwkv6_spec,
@@ -176,52 +185,130 @@ def _full_cache_from_kv(k, v, max_seq: int):
     return {"k": ck, "v": cv, "pos": cpos}
 
 
-def _ffn_or_moe(lp, x, cfg):
-    """The block's FFN: (out, aux), aux the router's loss (0.0 if dense)."""
+def _ffn_or_moe(lp, x, cfg, policy=None, moe_ep=False):
+    """The block's FFN: (out, aux), aux the router's loss (0.0 if dense).
+    ``moe_ep`` with a policy, on a mesh, takes the expert-parallel MoE."""
     if cfg.is_moe:
-        return moe_apply(lp["moe"], x, cfg)
-    return ffn_apply(lp["ffn"], x, cfg.activation), 0.0
+        if moe_ep and policy is not None and is_dtensor(x):
+            return moe_apply_ep(lp["moe"], x, cfg, policy.mesh,
+                                policy=policy)
+        return moe_apply(lp["moe"], x, cfg, policy=policy)
+    return ffn_apply(lp["ffn"], x, cfg.activation, policy=policy), 0.0
 
 
 def _attn_block(lp, x, cfg, positions, window, use_pallas, collect=False,
-                max_seq=0):
+                max_seq=0, policy=None, moe_ep=False):
     """Returns (x, aux, cache); cache is {} unless ``collect`` (prefill),
     which runs ``blockwise_attention`` as the reference's collect mode
     does."""
+    xn = acts(policy, rms_norm(x, lp["ln1"], cfg.norm_eps), "block_in")
     attn_out, (k, v) = attn_apply(
-        lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, positions,
-        window=window, use_pallas=use_pallas and not collect)
+        lp["attn"], xn, cfg, positions, window=window,
+        use_pallas=use_pallas and not collect,
+        policy=None if collect else policy)
     if not collect:
         cache = {}
-    elif window:
-        cache = _ring_cache_from_kv(k, v, window)
     else:
-        cache = _full_cache_from_kv(k, v, max_seq)
+        # per row and head: on a mesh each rank packs its own shards
+        plc = None if not is_dtensor(k) else (
+            k.placements, k.placements, moved(k.placements, {0: 0}))
+        cache = local_apply(
+            lambda k, v: _ring_cache_from_kv(k, v, window) if window
+            else _full_cache_from_kv(k, v, max_seq), plc, k, v)
     h = x + attn_out
-    f, aux = _ffn_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
-    return h + f, aux, cache
+    hn = acts(policy, rms_norm(h, lp["ln2"], cfg.norm_eps), "block_in")
+    f, aux = _ffn_or_moe(lp, hn, cfg, policy, moe_ep)
+    return acts(policy, h + f, "embeds"), aux, cache
 
 
-def _rec_block(lp, x, cfg, use_pallas, collect=False):
+def _rec_block(lp, x, cfg, use_pallas, collect=False, policy=None):
     o, (h_last, conv) = rglru_apply(
         lp["rglru"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
         use_pallas=use_pallas and not collect)
     cache = {"h": h_last, "conv": conv} if collect else {}
     h = x + o
-    return h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                         cfg.activation), cache
+    h = h + ffn_apply(lp["ffn"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                      cfg.activation, policy=policy)
+    return acts(policy, h, "embeds"), cache
 
 
-def _rwkv_block(lp, x, cfg, use_pallas, collect=False):
+def _rwkv_block(lp, x, cfg, use_pallas, collect=False, policy=None):
     o, (tm_x, state) = rwkv6_time_mix(
         lp["rwkv"]["tm"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
-        use_pallas=use_pallas and not collect)
+        policy=policy, use_pallas=use_pallas and not collect)
     h = x + o
     o2, cm_x = rwkv6_channel_mix(lp["rwkv"]["cm"],
                                  rms_norm(h, lp["ln2"], cfg.norm_eps), cfg)
     cache = ({"tm_x": tm_x, "cm_x": cm_x, "state": state} if collect
              else {})
-    return h + o2, cache
+    return acts(policy, h + o2, "embeds"), cache
+
+
+def _embedding(tokens, table):
+    """``F.embedding(tokens, table)``.  On a mesh the table is gathered
+    over its FSDP axes and stays split by vocab rows over "model": each
+    rank looks up the tokens its rows hold (zeros elsewhere), and the
+    partial results sum over "model" where they are next used."""
+    if not is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import from_global
+    mesh = table.device_mesh
+    t_plc = tuple(p if p == Shard(0) else Replicate()
+                  for p in table.placements)
+    table = table.redistribute(placements=t_plc)
+    tokens = like(tokens, table) if not is_dtensor(tokens) else tokens
+    k_plc = tuple(tokens.placements)
+    if any(a == Shard(0) and not isinstance(b, Replicate)
+           for a, b in zip(t_plc, k_plc)):
+        raise ValueError("tokens and vocab rows sharded over one mesh axis")
+    V = table.shape[0]
+    base = from_global(torch.arange(V, device=tokens.device), mesh, t_plc)
+    out_plc = tuple(Partial() if a == Shard(0) else b
+                    for a, b in zip(t_plc, k_plc))
+    grad_plc = tuple(a if a == Shard(0) else
+                     (Partial() if isinstance(b, Shard) else Replicate())
+                     for a, b in zip(t_plc, k_plc))
+
+    def body(tok, tab, rows):
+        idx = tok.long() - rows[0]
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        out = F.embedding(torch.where(hit, idx, torch.zeros_like(idx)), tab)
+        return out * hit[..., None].to(out.dtype)
+    out = local_map(body, out_placements=list(out_plc),
+                    in_placements=(k_plc, t_plc, t_plc),
+                    in_grad_placements=(k_plc, grad_plc, t_plc),
+                    device_mesh=mesh)(tokens, table, base)
+    # summed at once: a partial output must not meet a sharded gradient
+    return out.redistribute(placements=tuple(
+        Replicate() if isinstance(p, Partial) else p for p in out_plc))
+
+
+def _cross_entropy(logits, labels):
+    """``cross_entropy``; on a mesh the vocab dim may be split: the gold
+    logit is picked by a one-hot over the vocab ids, and every reduction
+    is DTensor's (partial results reduced where needed)."""
+    if not is_dtensor(logits):
+        return cross_entropy(logits, labels)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..distributed.sharding import from_global
+    V = logits.shape[-1]
+    vocab_ids = from_global(
+        torch.arange(V, device=logits.device), logits.device_mesh,
+        tuple(Shard(0) if p == Shard(logits.ndim - 1) else Replicate()
+              for p in logits.placements))
+    labels = like(labels, logits)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
+            )[..., 0]
+    onehot = (labels.long()[..., None] == vocab_ids).to(logits.dtype)
+    gold = (logits * onehot).sum(dim=-1)
+    mask = (labels != -1).to(logits.dtype)
+    loss = (logz - gold) * mask
+    return loss.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -235,14 +322,13 @@ class Transformer:
     moe_ep: bool = False
     kv_quant: bool = False
 
-    def __post_init__(self):
-        if self.moe_ep:
-            raise NotImplementedError("moe_ep (expert-parallel MoE) comes "
-                                      "with the mesh slice of the port")
-
     # ---- params ----------------------------------------------------------
     def spec(self):
         return model_spec(self.cfg)
+
+    def logical_axes(self):
+        """The logical-axis tuples of every param, parallel to them."""
+        return axes_tree(self.spec())
 
     def init(self, generator: torch.Generator, device=None, dtype=None):
         """Random params from ``generator`` (which lives on ``device``).
@@ -262,28 +348,31 @@ class Transformer:
         return init_tree(self.spec(), None, "meta", dt)
 
     # ---- forward ---------------------------------------------------------
-    def _embed(self, params, batch):
+    def _embed(self, params, batch, policy=None, kind="embeds"):
         """(B, S, d) inputs: the token embeddings, or ``embeds`` cast to the
         config's type through ``in_proj`` for ``input_embeds`` archs."""
         if self.cfg.input_embeds:
-            return batch["embeds"].to(getattr(torch, self.cfg.dtype)) \
+            x = batch["embeds"].to(getattr(torch, self.cfg.dtype)) \
                 @ params["in_proj"]
-        # F.embedding, not indexing: its backward sums a token's rows in
-        # a fixed order on the CPU and the card, where indexing's
-        # accumulating scatter adds them in parallel, in any order, and
-        # a resumed run would not be bitwise the straight one
-        return F.embedding(batch["tokens"], params["embed"])
+        else:
+            # F.embedding, not indexing: its backward sums a token's rows
+            # in a fixed order on the CPU and the card, where indexing's
+            # accumulating scatter adds them in parallel, in any order,
+            # and a resumed run would not be bitwise the straight one
+            x = _embedding(batch["tokens"], params["embed"])
+        return acts(policy, x, kind)
 
     def _head(self, params, h):
         """Logits of final-normed states: (..., vocab), or (...,
         n_codebooks, vocab) for codebook archs."""
         logits = h @ params["head"]
         if self.cfg.n_codebooks:
-            logits = logits.reshape(h.shape[:-1] + (self.cfg.n_codebooks,
-                                                    self.cfg.vocab))
+            logits = split_dim(logits, -1, (self.cfg.n_codebooks,
+                                            self.cfg.vocab))
         return logits
 
-    def _backbone(self, params, x, positions, *, collect=False, max_seq=0):
+    def _backbone(self, params, x, positions, *, collect=False, max_seq=0,
+                  policy=None):
         """Run all layers.  Returns (hidden, aux, caches): aux is the MoE
         router loss summed over the layers (0.0 without MoE); caches is {}
         unless ``collect``, else the stacked cache tree ``init_cache`` lays
@@ -304,20 +393,20 @@ class Transformer:
         if cfg.layer_pattern == "rwkv":
             caches = []
             for lp in _layers(params["layers"], cfg.n_layers):
-                x, c = run(lambda x, lp=lp: _rwkv_block(lp, x, cfg,
-                                                        use_pallas, collect),
-                           x)
+                x, c = run(lambda x, lp=lp: _rwkv_block(
+                    lp, x, cfg, use_pallas, collect, policy), x)
                 caches.append(c)
             return x, aux, _stack(caches) if collect else {}
         if cfg.layer_pattern == "griffin":
             def period_body(x, period):
                 pair = []
                 for lp in _layers(period["rec"], 2):
-                    x, c = _rec_block(lp, x, cfg, use_pallas, collect)
+                    x, c = _rec_block(lp, x, cfg, use_pallas, collect,
+                                      policy)
                     pair.append(c)
                 x, a, c = _attn_block(period["attn"], x, cfg, positions,
                                       cfg.local_window, use_pallas, collect,
-                                      max_seq)
+                                      max_seq, policy)
                 return x, a, (_stack(pair) if collect else {}), c
 
             rec, attn, tail = [], [], []
@@ -328,9 +417,8 @@ class Transformer:
                 attn.append(ac)
             n_tail = cfg.n_layers % 3
             for lp in _layers(params["tail"], n_tail) if n_tail else ():
-                x, c = run(lambda x, lp=lp: _rec_block(lp, x, cfg,
-                                                       use_pallas, collect),
-                           x)
+                x, c = run(lambda x, lp=lp: _rec_block(
+                    lp, x, cfg, use_pallas, collect, policy), x)
                 tail.append(c)
             if not collect:
                 return x, aux, {}
@@ -341,24 +429,25 @@ class Transformer:
         caches = []
         for lp in _layers(params["layers"], cfg.n_layers):
             x, a, c = run(lambda x, lp=lp: _attn_block(
-                lp, x, cfg, positions, 0, use_pallas, collect, max_seq), x)
+                lp, x, cfg, positions, 0, use_pallas, collect, max_seq,
+                policy, self.moe_ep), x)
             aux = aux + a
             caches.append(c)
         return x, aux, _stack(caches) if collect else {}
 
-    def _forward(self, params, batch):
+    def _forward(self, params, batch, policy=None):
         """(final-normed hidden states (B, S, d_model), aux loss)."""
-        x = self._embed(params, batch)
+        x = self._embed(params, batch, policy)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        h, aux, _ = self._backbone(params, x, positions)
+        positions = like(torch.arange(S, device=x.device).expand(B, S), x)
+        h, aux, _ = self._backbone(params, x, positions, policy=policy)
         return rms_norm(h, params["final_norm"], self.cfg.norm_eps), aux
 
     @torch.no_grad()
-    def hidden(self, params, batch):
+    def hidden(self, params, batch, policy=None):
         """The final-normed hidden states (B, S, d_model) of batch's tokens
         (B, S) or embeds (B, S, d_model): what ``loss`` feeds the head."""
-        return self._forward(params, batch)[0]
+        return self._forward(params, batch, policy)[0]
 
     def loss(self, params, batch, policy=None):
         """batch: tokens (B, S) [or embeds (B, S, d)] + labels (B, S) [or
@@ -366,9 +455,8 @@ class Transformer:
         ``router_aux_weight`` x the router loss for MoE.  The CE is taken
         over chunks of ``LOSS_CHUNK`` tokens, so (B, S, vocab) logits are
         never built.  Differentiable (see the module docstring)."""
-        no_policy(policy)
         cfg = self.cfg
-        h, aux = self._forward(params, batch)
+        h, aux = self._forward(params, batch, policy)
         S = h.shape[1]
         labels = batch["labels"]
         n_chunks = max(S // LOSS_CHUNK, 1)
@@ -379,7 +467,8 @@ class Transformer:
         total = 0.0
         for c in range(n_chunks):
             logits = self._head(params, h[:, c * C:(c + 1) * C]).float()
-            total = total + cross_entropy(logits, labels[:, c * C:(c + 1) * C])
+            total = total + _cross_entropy(logits,
+                                           labels[:, c * C:(c + 1) * C])
         ce = total / n_chunks
         loss = ce + cfg.router_aux_weight * aux if cfg.is_moe else ce
         return loss, {"ce": ce, "aux": aux}
@@ -397,13 +486,12 @@ class Transformer:
         positions ``<= last_pos`` independent of the padding suffix, and
         the decode-side validity mask (``cache_pos <= pos``) hides the
         padded KV entries until decode overwrites them in place."""
-        no_policy(policy)
         cfg = self.cfg
-        x = self._embed(params, batch)
+        x = self._embed(params, batch, policy)
         B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
+        positions = like(torch.arange(S, device=x.device).expand(B, S), x)
         h, _, caches = self._backbone(params, x, positions, collect=True,
-                                      max_seq=max_seq)
+                                      max_seq=max_seq, policy=policy)
         hl = (h[:, -1] if last_pos is None
               else h[torch.arange(B, device=h.device), last_pos])
         return self._head(params, rms_norm(hl, params["final_norm"],
@@ -459,40 +547,41 @@ class Transformer:
         (B, d)]; pos: (B,) int32.  Writes the step into ``cache`` in place
         and returns (logits (B, vocab), or (B, n_codebooks, vocab) for a
         codebook arch, and cache)."""
-        no_policy(policy)
         cfg = self.cfg
-        x = self._embed(params, {k: v[:, None] for k, v in batch.items()})
+        x = self._embed(params, {k: v[:, None] for k, v in batch.items()},
+                        policy, "embeds_dec")
 
         def rec_step(lp, x, c):
             o, _ = rglru_decode(lp["rglru"],
-                                rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, c)
+                                rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, c,
+                                policy=policy)
             x = x + o
             return x + ffn_apply(lp["ffn"], rms_norm(x, lp["ln2"],
                                                      cfg.norm_eps),
-                                 cfg.activation)
+                                 cfg.activation, policy=policy)
 
         def attn_step(lp, x, c, window):
             o, _ = attn_decode(lp["attn"],
                                rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, c,
-                               pos, window=window)
+                               pos, window=window, policy=policy)
             h = x + o
             return h + _ffn_or_moe(lp, rms_norm(h, lp["ln2"], cfg.norm_eps),
-                                   cfg)[0]
+                                   cfg, policy)[0]
 
         if cfg.layer_pattern == "rwkv":
             for i in range(cfg.n_layers):
                 lp, c = _index(params["layers"], i), _index(cache, i)
                 o, (tm_x, state) = rwkv6_time_mix(
                     lp["rwkv"]["tm"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-                    cfg, x_prev=c["tm_x"], state=c["state"])
+                    cfg, x_prev=c["tm_x"], state=c["state"], policy=policy)
                 h = x + o
                 o2, cm_x = rwkv6_channel_mix(
                     lp["rwkv"]["cm"], rms_norm(h, lp["ln2"], cfg.norm_eps),
                     cfg, x_prev=c["cm_x"])
                 x = h + o2
-                c["tm_x"].copy_(tm_x)
-                c["cm_x"].copy_(cm_x)
-                c["state"].copy_(state)
+                assign(c["tm_x"], tm_x)
+                assign(c["cm_x"], cm_x)
+                assign(c["state"], state)
         elif cfg.layer_pattern == "griffin":
             for i in range(cfg.n_layers // 3):
                 lp = _index(params["periods"], i)

@@ -27,10 +27,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..distributed.sharding import is_dtensor
 from ..tree import leaves, tree_map
 
-__all__ = ["adamw", "Optimizer", "LeafRule", "apply_rule", "CHUNK",
-           "UPDATE_RANGE"]
+__all__ = ["adamw", "Optimizer", "LeafRule", "apply_rule", "synced",
+           "local_ctx", "CHUNK", "UPDATE_RANGE"]
 
 CHUNK = 1 << 26          # elements of a leaf updated at a time (256 MB fp32)
 UPDATE_RANGE = "optimizer.update"      # the profiler range of an update
@@ -61,16 +64,62 @@ class Optimizer:
     rule: Optional[LeafRule] = None
 
 
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
+
+
+def synced(flat_g: List[torch.Tensor], flat_p: List[torch.Tensor]
+           ) -> List[torch.Tensor]:
+    """On a mesh, each gradient at its param's placements: partial sums
+    reduced (the data-parallel gradient sync: an all-reduce for a
+    replicated param, a reduce-scatter for a sharded one)."""
+    return [g.redistribute(placements=p.placements)
+            if is_dtensor(g) and tuple(g.placements) != tuple(p.placements)
+            else g for g, p in zip(flat_g, flat_p)]
+
+
+def local_ctx(ctx):
+    """``begin``'s terms as this rank's tensors (replicated DTensors are
+    whole on every rank)."""
+    return {k: _local(v) for k, v in ctx.items()}
+
+
 @torch.no_grad()
 def apply_rule(rule: LeafRule, grads, state, params):
     """Run ``rule`` over the whole tree, in place; returns (params,
-    state)."""
+    state).  On a mesh the gradients are first synced to their params'
+    placements; an elementwise rule then updates each rank's own shards,
+    any other rule runs on the DTensors."""
     with torch.profiler.record_function(UPDATE_RANGE):
-        flat_g = leaves(grads)
+        flat_p = leaves(params)
+        flat_g = synced(leaves(grads), flat_p)
         ctx = rule.begin(flat_g, state)
-        for g, slot, p in zip(flat_g, rule.slots(state), leaves(params)):
+        slots = rule.slots(state)
+        if rule.elementwise and flat_p and is_dtensor(flat_p[0]):
+            ctx = local_ctx(ctx)
+            flat_g, flat_p = [_local(g).contiguous() for g in flat_g], \
+                [_local(p) for p in flat_p]
+            slots = [{k: _local(t) for k, t in s.items()} for s in slots]
+        for g, slot, p in zip(flat_g, slots, flat_p):
             rule.leaf(ctx, g, slot, p)
     return params, state
+
+
+def _square_sum(g) -> torch.Tensor:
+    """Σ g² in fp32, slice by slice.  A DTensor sums its local shard the
+    same way, then across the mesh dims it is sharded over (a replicated
+    dim holds the same elements on every rank and is counted once), so a
+    1×1 mesh gives the unmeshed sum bit for bit."""
+    gf = _flat(_local(g).contiguous())
+    total = torch.zeros((), dtype=torch.float32, device=gf.device)
+    for lo, hi in _slices(gf.numel()):
+        total = total + torch.square(gf[lo:hi].to(torch.float32)).sum()
+    if not is_dtensor(g):
+        return total
+    plc = [Partial() if isinstance(p, Shard) else Replicate()
+           for p in g.placements]
+    return DTensor.from_local(total, g.device_mesh, plc,
+                              run_check=False).full_tensor()
 
 
 def _slices(n: int):
@@ -108,10 +157,7 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
             total = torch.zeros((), dtype=torch.float32,
                                 device=flat_g[0].device)
             for g in flat_g:
-                gf = _flat(g)
-                for lo, hi in _slices(gf.numel()):
-                    total = total + torch.square(
-                        gf[lo:hi].to(torch.float32)).sum()
+                total = total + _square_sum(g)
             gnorm = torch.sqrt(total)
             scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
         else:

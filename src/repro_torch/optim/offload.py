@@ -34,8 +34,10 @@ import torch
 
 from repro_torch.core import Program
 
-from ..tree import leaves, tree_map
-from .adamw import CHUNK, UPDATE_RANGE, Optimizer
+from ..tree import leaves, tree_map, unflatten
+from ..distributed.sharding import is_dtensor
+from .adamw import (CHUNK, UPDATE_RANGE, Optimizer, _local, local_ctx,
+                    synced)
 
 __all__ = ["plan_step_program", "attention_step_program",
            "host_memory_kind", "supports_pinned_host", "offload_shardings",
@@ -59,10 +61,21 @@ def supports_pinned_host(device=None) -> bool:
 
 
 def offload_shardings(sharding_tree):
-    """Moves a tree of mesh shardings to host memory in the reference;
-    the port has no mesh yet."""
-    raise NotImplementedError("offload_shardings maps mesh shardings: it "
-                              "comes with the mesh slice of the port")
+    """The same placements with host-pinned local shards: each
+    ``NamedSharding`` of the tree moved to the host memory kind of its
+    mesh's device; the identity where that device has none (a CPU mesh:
+    the state stays where it is).  ``sharding.place`` puts an array there
+    as this rank's own shard in pinned memory, a plain tensor (a DTensor
+    keeps its shard on the mesh's device); the update streams it in and
+    back as it does off a mesh."""
+    from ..distributed.sharding import NamedSharding, mesh_device_type
+
+    def move(s):
+        kind = host_memory_kind(mesh_device_type(s.mesh))
+        return s if kind is None else dataclasses.replace(
+            s, memory_kind=kind)
+    return tree_map(move, sharding_tree,
+                    is_leaf=lambda x: isinstance(x, NamedSharding))
 
 
 def offloaded_state(shapes, device=None):
@@ -118,13 +131,19 @@ def offloaded_optimizer(opt: Optimizer) -> Optimizer:
         device = leaves(params)[0].device
         if host_memory_kind(device) is None:
             return opt.init(params)
+        if is_dtensor(leaves(params)[0]) and not rule.elementwise:
+            raise ValueError(f"{opt.name}: offloaded state on a mesh needs "
+                             "an elementwise rule (AdamW)")
+        # on a mesh: this rank's shards of the state, in pinned memory
         return offloaded_state(opt.init(tree_map(lambda p: torch.empty(
-            p.shape, dtype=p.dtype, device="meta"), params)), device)
+            _local(p).shape, dtype=p.dtype, device="meta"), params)),
+            device)
 
     @torch.no_grad()
     def update(grads, state, params):
         slots = rule.slots(state)
-        if not any(t.is_pinned() for slot in slots for t in slot.values()):
+        if not any(_local(t).is_pinned() for slot in slots
+                   for t in slot.values()):
             return opt.update(grads, state, params)
         device = leaves(params)[0].device
         if device not in streams:
@@ -144,7 +163,15 @@ def _streamed(rule, grads, state, params, slots, load, store) -> None:
     back into its pinned buffers on ``store`` (delegatestore)."""
     device = leaves(params)[0].device
     compute = torch.cuda.current_stream(device)
-    ctx = rule.begin(leaves(grads), state)
+    flat_p = leaves(params)
+    flat_g = synced(leaves(grads), flat_p)
+    ctx = rule.begin(flat_g, state)
+    if flat_p and is_dtensor(flat_p[0]):
+        # each rank updates its own shards against its own state
+        ctx = local_ctx(ctx)
+        grads = unflatten(params, [_local(g).contiguous() for g in flat_g])
+        params = unflatten(params, [_local(p) for p in flat_p])
+        slots = [{k: _local(t) for k, t in s.items()} for s in slots]
     load.wait_stream(store)     # the last update's stores land before reloads
 
     def advancedload(slot):

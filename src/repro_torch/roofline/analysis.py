@@ -16,9 +16,16 @@ dispatch/sync overheads, per-block roofline, interconnect, energy),
 ``kernel_roofline_terms`` on the port's tile registry, the calibration fit
 ``fit_offload_constants``, ``rank_correlation``, the cross-program
 candidate predictor, and the analytic model FLOPs / HBM bytes on the
-port's configs.  ``collective_bytes`` and ``roofline_terms`` read a
-sharded program's compiled collectives: they wait for the port's
-distributed slice, as do mesh placements in the tuner.
+port's configs.
+
+There is no HLO to read a sharded program's collectives from.
+``trace_step`` runs a step once (on ``meta`` DTensors, so nothing is
+allocated) under ``CollectiveTrace``, a ``CommDebugMode`` that records
+each collective's op, group size and tensor bytes and counts the
+per-device FLOPs of the local (non-DTensor) products.
+``collective_bytes`` prices those records with the reference's
+ring-volume formulas under its keys, and ``roofline_terms`` takes them
+with the per-device FLOPs where the reference takes ``hlo_text``.
 
 ``HW`` describes one NVIDIA H100 SXM5 80GB from NVIDIA's published
 figures.  The table is UNCALIBRATED: the launch and sync overheads and
@@ -36,7 +43,8 @@ __all__ = ["HW", "CALIBRATABLE", "ENERGY_TERMS", "PREDICTOR_FEATURES",
            "offload_cost_terms", "kernel_roofline_terms",
            "fit_offload_constants", "rank_correlation",
            "candidate_features", "fit_candidate_predictor",
-           "predict_candidate_s"]
+           "predict_candidate_s", "COLLECTIVES", "collective_trace",
+           "trace_step", "collective_bytes", "roofline_terms"]
 
 HW = {
     # dense bf16 tensor-core peak (H100 SXM5 data sheet, 989.4 TFLOP/s;
@@ -544,3 +552,163 @@ def predict_candidate_s(model: Dict, rec) -> float:
     for f, c in model.get("coef", {}).items():
         s += float(c) * row.get(f, 0.0)
     return max(s, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Collectives of a sharded step, and its roofline terms
+# ---------------------------------------------------------------------------
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+# op-name fragment -> the reference's key (functional and c10d ops)
+_COLL_OPS = (("reduce_scatter", "reduce-scatter"),
+             ("all_gather", "all-gather"), ("allgather", "all-gather"),
+             ("all_reduce", "all-reduce"), ("allreduce", "all-reduce"),
+             ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+             ("send", "collective-permute"), ("broadcast", "all-gather"))
+
+
+def _group_size(args) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    for a in args:
+        if isinstance(a, str):
+            try:
+                return _resolve_process_group(a).size()
+            except Exception:
+                continue
+        if hasattr(a, "size") and hasattr(a, "rank") and not hasattr(
+                a, "shape"):
+            return int(a.size())
+    return 1
+
+
+def _nbytes(x) -> int:
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(x)
+               if isinstance(t, torch.Tensor))
+
+
+def collective_trace():
+    """A ``CommDebugMode`` that also keeps, for every collective of the
+    local tensors, ``{"op", "n", "bytes"}`` (``bytes``: the full tensor
+    the ring formula prices: the gathered result of an all-gather, the
+    input of a reduce-scatter, the tensor otherwise), and ``flops``: the
+    products of the local tensors (DTensor-level ops are not counted, as
+    their local ops are)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import flop_registry
+    aten = torch.ops.aten
+    extra = {aten.mv: _mv_flops, aten.dot: _dot_flops}
+
+    class CollectiveTrace(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.records: List[Dict[str, float]] = []
+            self.flops = 0.0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            kwargs = kwargs or {}
+            # DTensor-level ops are counted through their local ops; fake
+            # tensors are DTensor's shape propagation, not work
+            if any(isinstance(a, (DTensor, FakeTensor))
+                   for a in tree_leaves((args, kwargs))):
+                return out
+            name = func.__name__
+            ns = func.namespace
+            if ns in ("_c10d_functional", "_c10d_functional_autograd",
+                      "c10d"):
+                kind = next((k for frag, k in _COLL_OPS if frag in name),
+                            None)
+                if kind is not None and not name.startswith("wait"):
+                    n = max(_group_size(args), 1)
+                    b = _nbytes(args[0])
+                    if kind == "all-gather" and "broadcast" not in name:
+                        b *= n
+                    self.records.append({"op": kind, "n": n, "bytes": b})
+                return out
+            packet = func.overloadpacket
+            fn = extra.get(packet) or flop_registry.get(packet)
+            if fn is not None:
+                if packet in extra:
+                    self.flops += fn(*(tuple(a.shape) for a in args[:2]))
+                else:
+                    self.flops += fn(*args, **kwargs, out_val=out)
+            return out
+
+    return CollectiveTrace()
+
+
+def trace_step(fn, *args) -> Dict[str, object]:
+    """Run ``fn(*args)`` once under ``collective_trace``: returns
+    ``{"flops": per-device FLOPs, "collectives": records}``."""
+    trace = collective_trace()
+    with trace:
+        fn(*args)
+    return {"flops": float(trace.flops), "collectives": list(trace.records)}
+
+
+def collective_bytes(records) -> Dict[str, Dict[str, float]]:
+    """Per-type collective traffic in RING-VOLUME bytes (the wire cost a
+    bidirectional-ring algorithm moves per participant), the reference's
+    formulas on a trace's records:
+
+        all-reduce        2·(n−1)/n · tensor
+        all-gather        (n−1)/n  · gathered
+        reduce-scatter    (n−1)/n  · pre-reduce
+        all-to-all        (n−1)/n  · tensor
+        collective-permute  1      · tensor
+
+    A group of one rank moves nothing; ``bytes_result`` keeps the
+    tensor bytes."""
+    stats = {c: {"count": 0.0, "bytes": 0.0, "bytes_result": 0.0}
+             for c in COLLECTIVES}
+    for rec in records:
+        c, n, b = rec["op"], int(rec["n"]), float(rec["bytes"])
+        if c == "all-reduce":
+            wire = 2.0 * (n - 1) / n * b
+        elif c == "collective-permute":
+            wire = b if n > 1 else 0.0
+        else:
+            wire = (n - 1) / n * b
+        stats[c]["count"] += 1
+        stats[c]["bytes"] += wire
+        stats[c]["bytes_result"] += b
+    return stats
+
+
+def roofline_terms(cfg, shape, n_devices: int, trace: Dict[str, object],
+                   *, grad_accum: int = 1, kv_bytes: int = 2
+                   ) -> Dict[str, object]:
+    """The reference's roofline terms of one cell, from a ``trace_step``
+    record (per-device FLOPs and collectives) in place of its HLO."""
+    colls = collective_bytes(trace["collectives"])
+    coll_total = sum(v["bytes"] for v in colls.values())
+    dev_f = float(trace["flops"])
+    model_f = analytic_model_flops(cfg, shape)
+    mem_b = analytic_hbm_bytes(cfg, shape, n_devices,
+                               grad_accum=grad_accum, kv_bytes=kv_bytes)
+    t_compute = dev_f / HW["peak_flops_bf16"]
+    t_memory = mem_b / HW["hbm_bw"]
+    t_coll = coll_total / HW["ici_bw"]
+    terms = {"compute_s": t_compute, "memory_s": t_memory,
+             "collective_s": t_coll}
+    bottleneck = max(terms, key=lambda k: terms[k])
+    step_time = max(t_compute, t_memory, t_coll)
+    ideal = model_f / (n_devices * HW["peak_flops_bf16"])
+    return {
+        **terms,
+        "bottleneck": bottleneck,
+        "model_flops": model_f,
+        "hlo_flops_per_device": dev_f,
+        "useful_ratio": model_f / max(dev_f * n_devices, 1.0),
+        "roofline_fraction": ideal / max(step_time, 1e-30),
+        "collectives": colls,
+        "hbm_bytes_per_device": mem_b,
+    }

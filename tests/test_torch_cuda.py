@@ -996,3 +996,134 @@ def test_cuda_model_backward_through_flash_matches_plain(cuda, route, calm):
 def _float_tree(tree):
     return {k: _float_tree(v) if isinstance(v, dict)
             else v.detach().float() for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# The mesh on the card: a 1×1 ("data", "model") DeviceMesh of one NCCL rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world-size-1 NCCL group and its 1×1 mesh, for this module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the mesh runs on NCCL")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    init_process_group("cuda", 0, 1, str(tmp_path_factory.mktemp("nccl")))
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_mesh_backend_3mm(nccl_mesh, tmp_path):
+    from repro_torch.core import TuneCache, execute, plan, run_host_oracle
+    from repro_torch.core.tunecache import backend_fingerprint
+    from repro_torch.distributed.mesh_backend import MeshBackend
+    from repro_torch.polybench import build_3mm
+    be = MeshBackend(mesh=nccl_mesh)
+    assert backend_fingerprint(be).endswith(":meshdata1xmodel1")
+    p, _ = build_3mm(n=256)
+    pl = plan(p, policy="auto", backend=be, cache=TuneCache(tmp_path),
+              reps=1)
+    assert pl.meta["verify"]["ok"]
+    out, _ = execute(pl, backend=be)
+    want = run_host_oracle(p)["out"]
+    err = np.abs(np.asarray(out["out"]) - want).max() / np.abs(want).max()
+    assert err <= 1e-3
+
+
+def _kernel_case(name, device):
+    """(kernel call, its inputs) at a small shape."""
+    gen = torch.Generator(device).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    if name == "flash":
+        return (lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+                (rnd(2, 128, 4, 2, 64), rnd(2, 128, 4, 64),
+                 rnd(2, 128, 4, 64)))
+    if name == "wkv6":
+        w = torch.exp(-torch.exp(rnd(2, 64, 4, 64) * 0.1))
+        return (lambda r, k, v, w, u: ops.wkv6(r, k, v, w, u),
+                (rnd(2, 64, 4, 64), rnd(2, 64, 4, 64), rnd(2, 64, 4, 64),
+                 w, rnd(4, 64)))
+    a = torch.sigmoid(rnd(2, 64, 256))
+    return (lambda a, b: ops.rglru_scan(a, b), (a, rnd(2, 64, 256)))
+
+
+@pytest.mark.parametrize("name", ["flash", "wkv6", "rglru_scan"])
+def test_cuda_kernel_under_local_map_equals_unsharded(nccl_mesh, name):
+    """Each kernel on its rank's shard (``local_apply``, which the model
+    path calls) gives the unsharded kernel's bits."""
+    from repro_torch.distributed.sharding import distribute, local_apply
+    fn, args = _kernel_case(name, "cuda")
+    want = fn(*args)
+    dargs = [distribute(a, nccl_mesh, ("data",) + (None,) * (a.ndim - 1)
+                        if a.ndim > 2 else ()) for a in args]
+    n_out = 2 if name == "wkv6" else 1
+    plc = [tuple(dargs[0].placements)] * n_out
+    got = local_apply(fn, tuple(plc) if n_out > 1 else list(plc[0]), *dargs)
+    for g, w in zip(got if n_out > 1 else [got],
+                    want if n_out > 1 else [want]):
+        assert torch.equal(g.full_tensor(), w)
+
+
+def test_cuda_build_cell_on_mesh_matches_unmeshed(nccl_mesh):
+    """``build_cell(mesh=...)`` of reduced qwen2.5-14b with flash on the
+    1×1 mesh: the step's loss within 1e-5 of the unmeshed cell's."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.optim import default_optimizer
+    cfg = reduced(get_config("qwen2.5-14b"))
+    shape = ShapeSpec("t", "train", 64, 2)
+    params = Transformer(cfg).init(torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    losses = []
+    for mesh in (None, nccl_mesh):
+        cell = steps.build_cell(cfg, shape, mesh, use_pallas=True)
+        p = steps.unflatten(params, [t.clone() for t in
+                                     steps.leaves(params)])
+        args = cell.place(p, default_optimizer(cfg).init(p), batch)
+        _, _, m = cell.fn(*args)
+        loss = m["loss"]
+        losses.append(float(loss.full_tensor() if mesh is not None
+                            else loss))
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+
+
+def test_cuda_offloaded_step_on_mesh_equals_on_card_step(nccl_mesh):
+    """One train step of reduced qwen2.5-14b on the 1×1 mesh with the
+    AdamW state offloaded (each rank's shards in pinned host memory,
+    ``offload_shardings``) equals the step with the state on the card,
+    bit for bit, params and state; the offloaded arrays stay pinned."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.launch import steps
+    from repro_torch.optim import default_optimizer
+    cfg = reduced(get_config("qwen2.5-14b"))
+    shape = ShapeSpec("t", "train", 64, 2)
+    params = Transformer(cfg).init(torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    for offload in (False, True):
+        cell = steps.build_cell(cfg, shape, nccl_mesh, use_pallas=True,
+                                offload_opt=offload)
+        p = steps.unflatten(params, [t.clone() for t in
+                                     steps.leaves(params)])
+        new_p, new_s, _ = cell.fn(*cell.place(
+            p, default_optimizer(cfg).init(p), batch))
+        torch.cuda.synchronize()
+        out[offload] = [[(t.to_local() if is_dtensor(t) else t).detach()
+                         for t in steps.leaves(tree)]
+                        for tree in (new_p, new_s)]
+    state = [t for t in out[True][1] if t.ndim]
+    assert state and all(t.is_pinned() for t in state)
+    for a, b in zip(sum(out[True], []), sum(out[False], [])):
+        assert torch.equal(a.cpu(), b.cpu())

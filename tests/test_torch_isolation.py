@@ -3,8 +3,9 @@ its serving engine included) pulls in neither JAX nor any module of the
 reference package, and where there is no CUDA card its device entry
 points (the backend, ``execute``, ``Transformer.init`` and ``init_cache``,
 ``ServeRuntime``, ``launch.serve``, ``launch.train``, the prefetch
-iterator and the offloaded optimizer's state placement) raise instead of
-running on the CPU."""
+iterator, the offloaded optimizer's state placement, and the mesh's
+``make_mesh`` and ``init_process_group``) raise instead of running on the
+CPU.  Importing it makes no process group."""
 import os
 import re
 import shutil
@@ -32,8 +33,15 @@ assert "repro_torch.models.moe" in names, names
 for name in ("repro_torch.launch.train", "repro_torch.launch.steps",
              "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
              "repro_torch.runtime.fault", "repro_torch.optim.adamw",
-             "repro_torch.optim.adafactor"):
+             "repro_torch.optim.adafactor",
+             "repro_torch.distributed.sharding",
+             "repro_torch.distributed.mesh_backend",
+             "repro_torch.distributed.collectives",
+             "repro_torch.distributed.pipeline",
+             "repro_torch.launch.mesh", "repro_torch.launch.dryrun"):
     assert name in names, name
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port made a process group"
 
 import torch
 from repro_torch.configs import get_config, reduced
@@ -45,6 +53,7 @@ from repro_torch.serve import ServeRuntime
 from repro_torch.data import PrefetchIterator, SyntheticLM
 from repro_torch.launch.train import main as train_main, train
 from repro_torch.optim import adamw, offloaded_state
+from repro_torch.launch.mesh import init_process_group, make_mesh
 cfg = reduced(get_config("rwkv6-3b"))
 src = SyntheticLM(cfg, 1, 8)
 model = Transformer(cfg, use_pallas=True)
@@ -67,6 +76,8 @@ else:
                  lambda: train_main(["--arch", "rwkv6-3b", "--reduced",
                                      "--ckpt-dir", "unused"]),
                  lambda: PrefetchIterator(src),
+                 lambda: make_mesh((1, 1), ("data", "model")),
+                 lambda: init_process_group("cuda", 0, 1, "unused"),
                  lambda: offloaded_state(adamw().init(
                      model.abstract_params()))):
         try:

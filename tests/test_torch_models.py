@@ -451,20 +451,48 @@ def test_init_without_device_needs_a_card():
         m.init(torch.Generator())
 
 
+def _policy_runs(kind, name, moe_ep=False):
+    """(with a MeshPolicy, without any) outputs of one entry point on
+    plain CPU tensors."""
+    from repro_torch.distributed.sharding import (MeshPolicy, abstract_mesh,
+                                                  make_rules)
+    cfg = reduced(get_config(name))
+    model = Transformer(cfg, moe_ep=moe_ep)
+    plain = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    pol = MeshPolicy(make_rules(abstract_mesh((2, 4)), "train"), cfg)
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 16), generator=g,
+                        dtype=torch.int32)
+    if kind == "prefill":
+        return (model.prefill(params, {"tokens": tok}, 16, policy=pol)[0],
+                plain.prefill(params, {"tokens": tok}, 16)[0])
+    if kind == "decode_step":
+        pos = torch.zeros(2, dtype=torch.int32)
+        return tuple(m.decode_step(params, m.init_cache(2, 16,
+                                                        device="cpu"),
+                                   {"tokens": tok[:, 0]}, pos,
+                                   **kw)[0]
+                     for m, kw in ((model, {"policy": pol}), (plain, {})))
+    batch = {"tokens": tok, "labels": tok}
+    return (model.loss(params, batch, policy=pol)[0],
+            plain.loss(params, batch)[0])
+
+
 @pytest.mark.parametrize("call", [
-    lambda m: m.prefill({}, {}, 8, policy=object()),
-    lambda m: m.decode_step({}, {}, {}, None, policy=object()),
-    lambda m: m.loss({}, {}, policy=object()),
-    lambda m: Transformer(m.cfg, moe_ep=True),
-    lambda m: Transformer(reduced(get_config("qwen3-moe-30b-a3b")),
-                          moe_ep=True),
+    lambda: _policy_runs("prefill", "qwen2.5-14b"),
+    lambda: _policy_runs("decode_step", "qwen2.5-14b"),
+    lambda: _policy_runs("loss", "qwen2.5-14b"),
+    lambda: _policy_runs("loss", "qwen2.5-14b", moe_ep=True),
+    lambda: _policy_runs("loss", "qwen3-moe-30b-a3b", moe_ep=True),
 ], ids=["prefill", "decode_step", "policy", "moe_ep", "moe"])
 def test_later_slices_raise(call):
-    """What waits for later slices raises: sharding policies (prefill,
-    decode_step and loss take only ``policy=None``) and expert
-    parallelism, dense or MoE, which names the mesh slice."""
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        call(Transformer(reduced(get_config("qwen2.5-14b"))))
+    """The mesh options on plain tensors: a sharding policy
+    redistributes only DTensors, so prefill, decode_step and loss give
+    the unsharded results bit for bit; ``moe_ep`` without a mesh, dense
+    or MoE, is the plain model (sharded runs: test_torch_mesh.py)."""
+    got, want = call()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("change", [

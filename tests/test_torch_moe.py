@@ -213,12 +213,29 @@ def test_repeated_calls_give_the_same_bits():
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
 
 
-def test_moe_ep_waits_for_the_mesh_slice():
-    _, cfg = _cfgs("qwen3-moe-30b-a3b")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        moe.moe_apply_ep({}, None, cfg, None)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        Transformer(cfg, moe_ep=True)
+def test_moe_ep_waits_for_the_mesh_slice(tmp_path):
+    """``moe_apply_ep`` on a one-rank gloo mesh (one "model" rank owns
+    every expert) equals ``moe_apply`` with no drops; the 8-rank runs are
+    in test_torch_mesh.py."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    _, cfg = _cfgs("qwen3-moe-30b-a3b", capacity_factor=1000.0)
+    _, (want, want_aux), _, tp, x = _run("qwen3-moe-30b-a3b",
+                                         capacity_factor=1000.0)
+    init_process_group("cpu", 0, 1, str(tmp_path))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        dp = {"router": distribute(tp["router"], mesh, ()),
+              "experts": {k: distribute(v, mesh, ())
+                          for k, v in tp["experts"].items()}}
+        out, aux = moe.moe_apply_ep(dp, distribute(x, mesh, ()), cfg, mesh)
+        torch.testing.assert_close(out.full_tensor(), want, rtol=FP32_TOL,
+                                   atol=FP32_TOL)
+        assert abs(float(aux.full_tensor()) - float(want_aux)) <= AUX_TOL
+    finally:
+        dist.destroy_process_group()
+    assert Transformer(cfg, moe_ep=True).moe_ep
 
 
 def test_moe_spec_matches_reference():

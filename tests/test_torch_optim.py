@@ -227,8 +227,20 @@ def test_offloaded_state_needs_a_card():
 
 
 def test_offload_shardings_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        offload_shardings({"m": None})
+    """Shardings on a card's mesh move their local shards to pinned host
+    memory, with the same placements; a CPU or abstract mesh has no host
+    memory kind apart, so its shardings stay as they are."""
+    import types
+    from repro_torch.distributed.sharding import NamedSharding, abstract_mesh
+    card = types.SimpleNamespace(device_type="cuda")
+    tree = {"m": {"w": NamedSharding(card, ("data", None))},
+            "step": NamedSharding(card, ())}
+    moved = offload_shardings(tree)
+    assert moved["m"]["w"].spec == ("data", None)
+    assert moved["m"]["w"].memory_kind == "pinned_host"
+    assert moved["step"].memory_kind == "pinned_host"
+    flat = {"w": NamedSharding(abstract_mesh((2, 4)), ("data",))}
+    assert offload_shardings(flat) == flat
 
 
 def test_bf16_reference_params_carry_across():

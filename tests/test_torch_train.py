@@ -308,16 +308,24 @@ def test_prefill_and_decode_cells():
 @pytest.mark.parametrize("kw", [{"moe_ep": True}, {"fsdp_layers": True},
                                 {"seq_shard": True}, {"mesh": object()}])
 def test_mesh_cells_wait_for_the_mesh(kw):
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    """The sharding options need a mesh, and a mesh is a DeviceMesh
+    (the mesh cells themselves: tests/test_torch_mesh.py)."""
+    err = TypeError if "mesh" in kw else ValueError
+    with pytest.raises(err, match="mesh"):
         steps.build_cell(reduced(get_config("qwen2.5-14b")),
                          ShapeSpec("t", "train", 32, 2), **kw)
 
 
 def test_lower_waits_for_the_mesh():
-    cell = steps.build_cell(reduced(get_config("qwen2.5-14b")),
-                            ShapeSpec("t", "train", 32, 2))
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        cell.lower()
+    """Off a mesh, ``lower`` traces the step on ``meta`` tensors: the
+    per-device bytes and FLOPs of one device, no collective."""
+    cfg = reduced(get_config("qwen2.5-14b"))
+    cell = steps.build_cell(cfg, ShapeSpec("t", "train", 32, 2))
+    low = cell.lower()
+    n_params = sum(p.numel() for p in leaves(cell.args_abstract[0]))
+    assert low["param_bytes"] == 4 * n_params
+    assert low["opt_bytes"] == 8 * n_params + 4     # m, v fp32 + the step
+    assert low["collectives"] == [] and low["flops"] > 0
 
 
 def test_main_restarts_and_finishes(tmp_path, capsys):

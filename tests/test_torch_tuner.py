@@ -238,13 +238,19 @@ def test_chip_tuner_constants_equal_reference(name):
 
 
 def test_placements_wait_for_the_distributed_slice():
+    """On a backend without a mesh, placements are labels only, as in the
+    reference: the grid takes them, nothing is sharded and the plan
+    records no mesh (mesh backends: tests/test_torch_mesh.py)."""
     p, _ = port_polybench.build_3mm(n=16)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tune(p, backend="numpy", measure=False, cache=False,
-             placements=("replicate", "fsdp"))
-    with pytest.raises(NotImplementedError):
-        tune(p, backend="numpy", measure=False, cache=False,
-             configs=[PlanConfig(mesh_placement="fsdp")])
+    pl = tune(p, backend="numpy", measure=False, cache=False,
+              placements=("replicate", "fsdp"))
+    labels = {c["label"].rsplit("/", 1)[-1]
+              for c in pl.meta["tuning"]["candidates"]}
+    assert labels == {"replicate", "fsdp"}
+    assert pl.meta["tuning"]["mesh"] is None and "mesh" not in pl.meta
+    pl = tune(p, backend="numpy", measure=False, cache=False,
+              configs=[PlanConfig(mesh_placement="fsdp")])
+    assert pl.meta["tuning"]["chosen"].endswith("/fsdp")
     pl = tune(p, backend="numpy", measure=False, cache=False,
               placements=("",))
     assert pl.meta["tuning"]["mesh"] is None
