@@ -3,6 +3,7 @@ optimizations buy.
 
     PYTHONPATH=src python benchmarks/port_directive_micro.py [--quick]
         [--tune] [--backend cuda|cpu|numpy] [--report PATH]
+        [--snapshot PATH]
 
 The port's counterpart of ``benchmarks/directive_micro.py``, with the same
 programs and the same CSV rows:
@@ -27,7 +28,9 @@ before timing; lowering cost is ``compile_ms``).
 each program plus the 3mm worked example and the flash-attention step
 (its tile variants are enumerated and measured), prints one row per
 program, and writes the ranked predicted-vs-measured tables to
-``--report`` (default ``port_tuning_report.json``).  ``--quick`` shrinks
+``--report`` (default ``port_tuning_report.json``) and its summary, dated,
+to ``--snapshot`` (default ``BENCH_port_<YYYYMMDD>.json`` in the working
+directory), which ``port_trajectory.py`` diffs.  ``--quick`` shrinks
 the sizes to the tuning gate's (N = 256, 4 iterations).  The backend is
 the torch one on ``cuda:0`` unless ``--backend cpu`` (torch on the host)
 or ``--backend numpy`` is given.
@@ -233,6 +236,24 @@ def bench_tuner(out_path: str = "port_tuning_report.json") -> Dict:
     return {"name": "plan_tuner", "report_path": out_path, "rows": rows}
 
 
+def write_bench_snapshot(rows: Dict, path: str = None) -> str:
+    """The dated tuning summary (``BENCH_port_<YYYYMMDD>.json`` unless
+    ``path`` is given), with the reference snapshot's keys, so successive
+    runs of ``--tune`` can be diffed."""
+    from repro_torch.core import COST_MODEL_VERSION
+    if path is None:
+        path = f"BENCH_port_{time.strftime('%Y%m%d')}.json"
+    snap = {
+        "date": time.strftime("%Y-%m-%d"),
+        "cost_model_version": COST_MODEL_VERSION,
+        "params": {"N": N, "ITERS": ITERS, "REPS": REPS},
+        "programs": rows,
+    }
+    with open(path, "w") as f:
+        json.dump(snap, f, indent=2, sort_keys=True, default=float)
+    return path
+
+
 def main(argv=None):
     global N, ITERS, REPS, BACKEND
     args = list(sys.argv[1:] if argv is None else argv)
@@ -250,6 +271,10 @@ def main(argv=None):
                 for k, v in row.items())
             print(f"tune_{name},{row['measured_ms'] * 1e3:.0f},{extra}")
         print(f"tuning report written to {r['report_path']}")
+        snap = write_bench_snapshot(
+            r["rows"], args[args.index("--snapshot") + 1]
+            if "--snapshot" in args else None)
+        print(f"bench snapshot written to {snap}")
         return [r]
     results = []
     for bench in (bench_advancedload, bench_delegatestore):

@@ -136,13 +136,34 @@ Drives the port's main path through its public entry points and checks it:
    the plain attention; (d) rwkv6-3b and recurrentgemma-2b fp32 forwards
    at full width cut to 4 layers on the mesh, each kernel on its rank's
    shard under ``local_map``: hidden within 1e-4 of the unmeshed port's
-   with kernels, one launch per layer of each kernel's kind.
+   with kernels, one launch per layer of each kernel's kind; (e)
+   offload_mesh: ``build_cell(qwen2.5-14b, train, mesh=1×1,
+   use_pallas=True)`` at full width, bf16, 2 of 48 layers, B = 1,
+   S = 4096, two Adafactor steps with the state on the card and two with
+   ``offload_opt=True`` (each rank's state shards pinned ``PinnedShard``s,
+   the update streamed piece by piece, Adafactor's pieces as DTensors)
+   from the same params and batch: params and state bitwise equal, the
+   offloaded state pinned, flash's sm90 kernel twice per layer a step in
+   the offloaded run (the forward and its recompute) and nothing else,
+   each run's peak and step ms; then that state saved by ``CheckpointManager``
+   and restored by its offload shardings, bitwise and pinned;
+12. paper_tables: ``benchmarks/port_run.py``'s rows on the card (Table 2,
+   Figs. 4–6, train_overlap) at the reference's default sizes, one JSON
+   line per row; every Fig. 6 row moves no more with the optimized plan
+   than with the naive one, and the train row's final loss is finite;
+13. trajectory: ``benchmarks/port_directive_micro.py --tune --quick``
+   twice into a temporary directory (two dated ``BENCH_port_*``
+   snapshots, each run on a fresh tune cache), then
+   ``benchmarks/port_trajectory.py`` over them: two snapshots found and
+   no coverage regression; measured regressions and notes printed, not
+   gated (two runs on one card differ by noise).
 
 Each kernel's ``launches`` in the kernels line sums the paths that ran it:
-attn_step, model_forward, train (a), tuner and mesh for flash's SIMT route
+attn_step, model_forward, train (a), tuner, mesh and trajectory (the
+attn_step gate program's tuning) for flash's SIMT route
 (``flash_attention``), model_forward (the zoo's runs included), train
-(b) and mesh (c)'s bf16 step for its sm90 route
-(``flash_attention_sm90``), wkv6 and
+(b), mesh (c)'s bf16 step and mesh (e)'s offloaded step for its sm90
+route (``flash_attention_sm90``), wkv6 and
 rglru_scan (model_forward and mesh), rmsnorm_path for rmsnorm; comparison
 launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
@@ -215,6 +236,7 @@ MESH_TIMED_STEPS = 3        # (c) timed, after one warm step, per run
 # its log-sum-exp by hand: fp32 rounding apart, which bf16 rounding of the
 # backward widens to about two bf16 steps, 7.9e-3, on an H100)
 MESH_BF16_GRAD_TOL = 2e-2
+OFFLOAD_MESH_STEPS = 2       # offload_mesh: steps a run, the first warms
 
 # time_ms's spin before each timed call: about a millisecond of SM cycles
 HOLD_CYCLES = 2_000_000
@@ -2487,10 +2509,138 @@ def _mesh_forward(mesh, name: str, smi: str) -> dict:
     return counts
 
 
+def _mesh_offload(mesh, smi: str) -> dict:
+    """offload_mesh (module docstring, 11 (e)): qwen2.5-14b's train cell
+    on the mesh at full width, bf16, TRAIN_CUT_LAYERS deep,
+    OFFLOAD_MESH_STEPS steps with Adafactor's state on the card and as
+    many with it offloaded (``build_cell(offload_opt=True)``: each rank's
+    shards pinned, the update's pieces streamed, the non-elementwise rule
+    on DTensors), from the same params and batch (the first step of each
+    run warms it; the second is the one to compare).  (a) Params and
+    state bitwise equal, every offloaded array a pinned ``PinnedShard``,
+    the offloaded steps counted (flash's sm90 kernel once per layer in
+    each forward and once in its recompute, nothing else), each run's
+    peak and step ms; (b) the
+    offloaded state saved with ``CheckpointManager`` and restored by its
+    offload shardings: bitwise, pinned.  Returns the counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.sharding import PinnedShard, local_shard
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adafactor
+    from repro_torch.tree import leaves
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=TRAIN_CUT_LAYERS)
+    shape = ShapeSpec("train_offload", "train", TRAIN_SEQ, 1)
+    params = Transformer(cfg).init(torch.Generator("cuda").manual_seed(3))
+    batch = _train_batch(cfg, 2)
+    want = {**dict.fromkeys(_counters(), 0),
+            **_expected_launches(cfg, torch.bfloat16,
+                                 n_forwards=2 * OFFLOAD_MESH_STEPS)}
+    before = _launch_counts()
+    runs, out, counts = {}, {}, None
+    default_optimizer = steps.default_optimizer
+    steps.default_optimizer = lambda cfg: adafactor()
+    try:
+        for offload in (False, True):
+            cell = steps.build_cell(cfg, shape, mesh, use_pallas=True,
+                                    offload_opt=offload)
+            p = _clone_tree(params)
+            args = cell.place(p, adafactor().init(p), batch)
+            del p
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if offload:
+                _set_launch_counts(dict.fromkeys(_counters(), 0))
+            times = []
+            for _ in range(OFFLOAD_MESH_STEPS):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                new_p, new_s, metrics = cell.fn(*args)
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1))
+            if offload:
+                counts = _launch_counts()
+            name = cell.meta["optimizer"]
+            arrays = [x for x in leaves(new_s) if x.ndim]
+            runs[name] = dict(
+                step_ms=times,
+                loss=float(metrics["loss"].full_tensor()),
+                resident_before_gb=base / 1e9,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_over_resident_gb=(torch.cuda.max_memory_allocated()
+                                       - base) / 1e9,
+                state_gb=sum(x.numel() * x.element_size()
+                             for x in arrays) / 1e9,
+                state_pinned=all(isinstance(x, PinnedShard)
+                                 and x.is_pinned() for x in arrays))
+            out[name] = (cell, new_p, new_s)
+            del args, metrics, arrays
+    finally:
+        steps.default_optimizer = default_optimizer
+    check(counts == want, f"offload_mesh: the offloaded step launched "
+          f"{counts}, want {want}")
+    (_, p_card, s_card), (cell, p_off, s_off) = (out["adafactor"],
+                                                 out["adafactor+offload"])
+    check(runs["adafactor+offload"]["state_pinned"],
+          "offload_mesh: an offloaded state array is not a pinned "
+          "PinnedShard")
+    params_equal = all(torch.equal(a.to_local(), b.to_local())
+                       for a, b in zip(leaves(p_off), leaves(p_card)))
+    state_equal = all(torch.equal(local_shard(a).cpu(),
+                                  local_shard(b).cpu())
+                      for a, b in zip(leaves(s_off), leaves(s_card)))
+    check(params_equal and state_equal, f"offload_mesh: offloaded "
+          f"Adafactor differs from the on-card step (params "
+          f"{params_equal}, state {state_equal})")
+    del out, p_card, s_card, p_off
+    torch.cuda.empty_cache()
+
+    # (b) the offloaded state through a checkpoint and back onto the mesh
+    t_ckpt = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
+    try:
+        mgr = CheckpointManager(store)
+        mgr.save(1, s_off, blocking=True)
+        back, _ = mgr.restore(1, s_off, shardings=cell.in_shardings[1])
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    restored = all(type(a) is type(b) and torch.equal(
+        local_shard(a).cpu(), local_shard(b).cpu())
+        for a, b in zip(leaves(back), leaves(s_off)))
+    pinned = all(isinstance(x, PinnedShard) and x.is_pinned()
+                 for x in leaves(back) if x.ndim)
+    check(restored and pinned, f"offload_mesh: restored state bitwise "
+          f"{restored}, pinned {pinned}")
+    _set_launch_counts(before)
+    report("offload_mesh", model=TRAIN_MODEL, n_layers=TRAIN_CUT_LAYERS,
+           batch=1, seq=TRAIN_SEQ, optimizer="adafactor",
+           params=sum(_leaf_sizes(params)), runs=runs,
+           params_bitwise_equal=params_equal,
+           state_bitwise_equal=state_equal, launches=counts,
+           checkpoint={"restored_bitwise": restored, "pinned": pinned,
+                       "seconds": time.perf_counter() - t_ckpt},
+           seconds=time.perf_counter() - t, card=smi)
+    del params, batch, s_off, back, cell
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_mesh(smi: str) -> dict:
     """The mesh on the card (see the module docstring, 11): a world-size-1
     NCCL group, a 1×1 ("data", "model") ``DeviceMesh`` through
-    ``launch.mesh.make_mesh``, parts (a)–(d), the group destroyed at the
+    ``launch.mesh.make_mesh``, parts (a)–(e), the group destroyed at the
     end.  Returns the launches of the parts' main-path runs."""
     import torch.distributed as dist
 
@@ -2505,6 +2655,7 @@ def phase_mesh(smi: str) -> dict:
         _mesh_3mm(mesh, smi)
         parts = [_mesh_attn_step(mesh, smi), _mesh_train(mesh, smi)]
         parts += [_mesh_forward(mesh, name, smi) for name in MESH_FORWARD]
+        parts.append(_mesh_offload(mesh, smi))
         for part in parts:
             for kernel, n in part.items():
                 launches[kernel] += n
@@ -2514,6 +2665,97 @@ def phase_mesh(smi: str) -> dict:
     report("mesh", run="all", launches=launches,
            seconds=time.perf_counter() - t, card=smi)
     return launches
+
+
+def phase_paper_tables(smi: str) -> None:
+    """paper_tables (module docstring, 12): ``benchmarks/port_run.py`` on
+    the card, each row a JSON line; every Fig. 6 row moves no more with
+    the optimized plan than with the naive one, and the train row's loss
+    is finite."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    import port_run
+
+    t = time.perf_counter()
+    rows = port_run.rows("cuda")
+    for name, us, derived in rows:
+        report("paper_tables", name=name, us_per_call=int(us),
+               derived=port_run.parse_derived(derived))
+    fig6 = {name: port_run.parse_derived(d)["transfers"]
+            for name, _, d in rows if name.startswith("fig6_")}
+    check(len(fig6) == 10, f"paper_tables: fig6 rows {sorted(fig6)}")
+    for name, tr in fig6.items():
+        opt, naive = (int(x) for x in tr.split("/"))
+        check(opt <= naive, f"paper_tables: {name} moves {tr}")
+    train = port_run.parse_derived(rows[-1][2])
+    check(rows[-1][0] == "train_overlap"
+          and math.isfinite(float(train["final_loss"])),
+          f"paper_tables: train row {rows[-1]}")
+    report("paper_tables", run="all", rows=len(rows), sizes="default",
+           seconds=time.perf_counter() - t, card=smi)
+
+
+def phase_trajectory(smi: str) -> dict:
+    """trajectory (module docstring, 13): ``port_directive_micro --tune
+    --quick`` twice into a temporary directory, each run on its own fresh
+    tune cache (so both measure), the first snapshot named a day before
+    the second so the two sort as previous and current; then
+    ``port_trajectory`` over that directory.  Gated: two snapshots found,
+    no coverage regression.  Measured regressions between two runs on one
+    card are printed, not gated.  Returns flash's launches (the attn_step
+    gate program's tuning)."""
+    import datetime
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks"))
+    import port_directive_micro as dm
+    import port_trajectory
+
+    t = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_trajectory-"))
+    today = datetime.date.today()
+    saved = (dm.N, dm.ITERS, dm.REPS, dm.BACKEND,
+             os.environ.get("REPRO_TORCH_TUNE_CACHE"))
+    before = _launch_counts()
+    _set_launch_counts(dict.fromkeys(_counters(), 0))
+    try:
+        runs = []
+        for i, day in enumerate((today - datetime.timedelta(days=1),
+                                 today)):
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tmp / f"tc{i}")
+            t_run = time.perf_counter()
+            with redirect_stdout(io.StringIO()):
+                dm.main(["--tune", "--quick", "--report",
+                         str(tmp / f"report{i}.json"), "--snapshot",
+                         str(tmp / f"BENCH_port_{day:%Y%m%d}.json")])
+            runs.append(time.perf_counter() - t_run)
+        counts = _launch_counts()
+        snaps = port_trajectory.find_snapshots(str(tmp))
+        prev, curr = (json.loads(Path(x).read_text()) for x in snaps[-2:])
+        regressions, notes = port_trajectory.diff(prev, curr)
+        with redirect_stdout(io.StringIO()) as text:
+            code = port_trajectory.main(["--root", str(tmp)])
+    finally:
+        dm.N, dm.ITERS, dm.REPS, dm.BACKEND = saved[:4]
+        if saved[4] is None:
+            os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = saved[4]
+        _set_launch_counts(before)
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(len(snaps) == 2, f"trajectory: {len(snaps)} snapshots")
+    coverage = [r for r in regressions if "missing now" in r]
+    check(not coverage and code == 0, f"trajectory: {coverage}, exit {code}")
+    report("trajectory", snapshots=[Path(x).name for x in snaps],
+           programs=sorted(curr["programs"]), regressions=regressions,
+           notes=notes, output=text.getvalue().splitlines(),
+           measured_ms={k: [prev["programs"][k]["measured_ms"],
+                            curr["programs"][k]["measured_ms"]]
+                        for k in sorted(curr["programs"])},
+           run_seconds=runs, launches=counts,
+           seconds=time.perf_counter() - t, card=smi)
+    return counts
 
 
 def main() -> int:
@@ -2544,6 +2786,9 @@ def main() -> int:
     launches["rmsnorm"] = phase_rmsnorm_path()
     launches["flash_attention"] += phase_tuner()
     for kernel, n in phase_mesh(smi).items():
+        launches[kernel] += n
+    phase_paper_tables(smi)
+    for kernel, n in phase_trajectory(smi).items():
         launches[kernel] += n
     for name in rows:
         check(launches[name] > 0, f"the main path never launched {name}")

@@ -22,12 +22,16 @@ payload viewed as int16 and then as bf16.  The reference's own
 ``restore`` cannot read such a leaf (numpy gives ``|V2``, which JAX
 refuses), so without this the port could not resume a bf16 model.
 
-On a mesh (DTensor leaves) every rank calls ``save``: each leaf is
-gathered whole (``full_tensor``), rank 0 writes the same files as for
-plain tensors, and ``wait()`` ends with a barrier, after which every
-rank can read them.  ``restore(..., shardings=)`` places each leaf by a
-tree of ``distributed.NamedSharding``, whatever mesh or placement the
-checkpoint was saved from (the reference's elastic re-mesh).
+On a mesh (DTensor leaves, or the ``PinnedShard``s of offloaded
+optimizer state) every rank calls ``save``: each leaf is gathered whole
+(``full_tensor``, ``PinnedShard.full``), rank 0 writes the same files as
+for plain tensors, with the global shapes in the manifest, and
+``wait()`` ends with a barrier, after which every rank can read them.
+``restore(..., shardings=)`` places each leaf by a tree of
+``distributed.NamedSharding``, whatever mesh or placement the checkpoint
+was saved from (the reference's elastic re-mesh); a ``pinned_host`` one
+(``optim.offload_shardings``) gives each rank its own shard back as a
+``PinnedShard``, as does a target tree of them without ``shardings``.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..distributed.sharding import is_dtensor
+from ..distributed.sharding import PinnedShard, is_dtensor
 from ..tree import flatten_with_paths, leaves, treedef_str, unflatten
 
 __all__ = ["CheckpointManager"]
@@ -55,6 +59,8 @@ def _host_array(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     t = t.detach()
     if is_dtensor(t):
         t = t.full_tensor()
+    elif isinstance(t, PinnedShard):
+        t = t.full()
     host = t.cpu() if t.device.type != "cpu" else t.clone()
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy(), "bfloat16"
@@ -104,7 +110,8 @@ class CheckpointManager:
             # pinned host leaves may still be the target of stream copies
             torch.cuda.synchronize()
         flat = flatten_with_paths(tree)
-        self._meshed = any(is_dtensor(v) for _, v in flat)
+        self._meshed = any(is_dtensor(v) or isinstance(v, PinnedShard)
+                           for _, v in flat)
         host_leaves = [(k, *_host_array(v)) for k, v in flat]
         manifest = {
             "step": step,
@@ -177,8 +184,9 @@ class CheckpointManager:
         ``device``, or where the target's leaf lives (pinned if it is
         pinned) when ``device`` is None; a ``meta`` target gives CPU
         tensors.  With ``shardings`` (a tree of ``NamedSharding``) each
-        leaf is placed on its mesh instead.  Shapes must match the
-        target's."""
+        leaf is placed on its mesh instead, as it is where the target's
+        leaf is a ``PinnedShard``.  Shapes must match the target's global
+        shapes."""
         sh = None
         if shardings is not None:
             from ..distributed.sharding import NamedSharding
@@ -193,17 +201,20 @@ class CheckpointManager:
             if ent is None:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             t = _load_npy(d / ent["file"], ent["dtype"])
-            want = tuple(getattr(tgt, "shape", t.shape))
+            want = tuple(tgt.global_shape if isinstance(tgt, PinnedShard)
+                         else getattr(tgt, "shape", t.shape))
             if tuple(t.shape) != want:
                 raise ValueError(
                     f"leaf {key!r}: checkpoint shape {tuple(t.shape)} != "
                     f"target {want}")
-            if sh is None:
+            s = sh[len(out)] if sh is not None else (
+                tgt.sharding if isinstance(tgt, PinnedShard) else None)
+            if s is None:
                 out.append(self._place(t, tgt, device))
             else:
                 from ..distributed.sharding import place_leaf
-                s = sh[len(out)]
-                out.append(place_leaf(t.to(s.mesh.device_type), s))
+                out.append(place_leaf(t if s.memory_kind == "pinned_host"
+                                      else t.to(s.mesh.device_type), s))
         return unflatten(target_tree, out), manifest["extra"]
 
     @staticmethod

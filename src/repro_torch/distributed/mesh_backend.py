@@ -49,9 +49,9 @@ import torch
 
 from ..core.backend import TorchDeviceBackend, register_backend
 from ..core.dtypes import torch_dtype
-from .sharding import (from_global, host_shard, is_dtensor, make_rules,
-                       mesh_shape, placements, reduced, spec_for_axes,
-                       wrap_shard)
+from .sharding import (from_global, host_shard, is_dtensor, local_shard,
+                       make_rules, mesh_shape, placements, reduced,
+                       spec_for_axes, wrap_shard)
 
 __all__ = [
     "MeshBackend", "DEFAULT_PLACEMENTS", "auto_mesh_shape",
@@ -86,10 +86,6 @@ def canonical_placement(placement: Any) -> Tuple[Tuple[str, tuple], ...]:
                     for e in (entries or ()))
         out.append((str(var), ent))
     return tuple(out)
-
-
-def _dtensor_local(t):
-    return t.to_local() if is_dtensor(t) else t
 
 
 class MeshBackend(TorchDeviceBackend):
@@ -200,7 +196,7 @@ class MeshBackend(TorchDeviceBackend):
 
     # -- CUDA ordering on the local shards -----------------------------------
     def _ready(self, tensors, stream):
-        ev = super()._ready([_dtensor_local(t) for t in tensors], stream)
+        ev = super()._ready([local_shard(t) for t in tensors], stream)
         for t in tensors:
             t._ready_event, t._ready_stream = ev, stream
         return ev
@@ -210,7 +206,7 @@ class MeshBackend(TorchDeviceBackend):
             src = getattr(t, "_ready_stream", None)
             if src is not None and src != stream:
                 stream.wait_event(t._ready_event)
-                _dtensor_local(t).record_stream(stream)
+                local_shard(t).record_stream(stream)
 
     # -- compute -----------------------------------------------------------
     def launch(self, fn, names, writes, args, *, stream: int = 0):

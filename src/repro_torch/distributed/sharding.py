@@ -27,13 +27,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
 from torch.distributed.tensor import DTensor
 
 from ..tree import flatten_with_paths, leaves, unflatten
 
 __all__ = ["AbstractMesh", "abstract_mesh", "mesh_shape", "NamedSharding",
            "mesh_device_type", "place", "place_leaf", "host_shard",
-           "wrap_shard", "ShardingRules", "PARAM_RULES", "make_rules", "spec_for_axes",
+           "PinnedShard", "local_shard", "spec_of", "wrap_shard",
+           "ShardingRules", "PARAM_RULES", "make_rules", "spec_for_axes",
            "tree_shardings", "MeshPolicy", "batch_axes", "batch_specs",
            "cache_shardings", "placements", "distribute", "from_global",
            "like", "replicate", "moved", "reduced", "split_dim", "merge_dims",
@@ -135,6 +137,12 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def local_shard(t):
+    """This rank's values of ``t``: a DTensor's local shard, any other
+    tensor (a ``PinnedShard`` is its own shard) as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def distribute(t, mesh, spec):
     """``t`` placed on ``mesh`` by ``spec``: a DTensor whose local shard
     this rank holds (``t`` is the global value, equal on every rank)."""
@@ -157,10 +165,18 @@ def host_shard(host, mesh, plc):
 def wrap_shard(local, mesh, plc, shape):
     """A DTensor of global ``shape`` from this rank's shard ``local``
     (no collective)."""
-    import torch
     glob = torch.empty(tuple(shape), device="meta")
     return DTensor.from_local(local, mesh, tuple(plc), run_check=False,
                               shape=glob.shape, stride=glob.stride())
+
+
+def _chunk(t, mesh, plc):
+    """This rank's chunk of ``t`` at placements ``plc`` (a view)."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard):
+            t = t.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return t
 
 
 def from_global(t, mesh, plc):
@@ -168,15 +184,20 @@ def from_global(t, mesh, plc):
     every rank holds: each rank keeps a copy of its own chunk (never
     ``t``'s storage, which in-place updates would write through), with no
     collective (``distribute_tensor`` would broadcast rank 0's value)."""
-    import torch
-    from torch.distributed.tensor import Shard
-    local = t
-    for i, p in enumerate(plc):
-        if isinstance(p, Shard):
-            local = local.chunk(mesh.size(i), dim=p.dim)[
-                mesh.get_local_rank(i)]
+    local = _chunk(t, mesh, plc)
     return wrap_shard(local.clone(memory_format=torch.contiguous_format),
                       mesh, plc, t.shape)
+
+
+def spec_of(t) -> tuple:
+    """The spec of a DTensor: each tensor dim's mesh axes, from its
+    placements (a mesh axis of size 1 replicates, so it names none)."""
+    from torch.distributed.tensor import Shard
+    entries: List[List[str]] = [[] for _ in range(t.ndim)]
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if isinstance(p, Shard):
+            entries[p.dim].append(name)
+    return _spec(*entries)
 
 
 def like(t, x):
@@ -230,14 +251,80 @@ def place(tree, shardings):
 def place_leaf(t, s: NamedSharding):
     """One global value placed by ``s`` (see ``place``).  A DTensor
     keeps its local shard on its mesh's device, so under a
-    ``pinned_host`` sharding an array becomes this rank's own shard as a
-    plain tensor in pinned memory, as ``optim.offloaded_state`` makes it
-    (a 0-d leaf, the step, stays on the device, and a ``meta`` value stays
-    an abstract DTensor)."""
-    d = distribute(t, s.mesh, s.spec)
+    ``pinned_host`` sharding an array becomes this rank's own shard in
+    host memory, a ``PinnedShard`` (pinned where the mesh is on a card);
+    a 0-d leaf (the step) stays on the device, and a ``meta`` value stays
+    an abstract DTensor."""
     if s.memory_kind == "pinned_host" and t.ndim and not t.is_meta:
-        return d.to_local().cpu().pin_memory()
-    return d
+        # only this rank's chunk leaves the card, copied once
+        local = _chunk(t, s.mesh, s.placements)
+        return PinnedShard(_host_buffer(local.shape, t.dtype, s)
+                           .copy_(local), s, t.shape)
+    return distribute(t, s.mesh, s.spec)
+
+
+def _host_buffer(shape, dtype, s: NamedSharding) -> torch.Tensor:
+    """An empty host tensor for a shard under ``s``: pinned where the
+    mesh is on a card."""
+    return torch.empty(tuple(shape), dtype=dtype,
+                       pin_memory=mesh_device_type(s.mesh) == "cuda")
+
+
+_KEEPS_SHARD = {torch.Tensor.clone, torch.Tensor.detach}
+
+
+class PinnedShard(torch.Tensor):
+    """This rank's shard of a global array held in host memory: what the
+    reference's global array under ``memory_kind="pinned_host"`` is on
+    each rank.  A plain tensor of the local shape (pinned where the mesh
+    is on a card) that also carries the array's ``global_shape`` and its
+    ``sharding`` (``NamedSharding``: mesh and spec).  Arithmetic on it
+    gives plain tensors; ``clone`` and ``detach`` keep the two fields, so
+    a tree map that copies a state tree keeps them.
+    ``full()`` gathers the array (every rank of the mesh calls it), as a
+    checkpoint's save does."""
+
+    @staticmethod
+    def __new__(cls, local, sharding: NamedSharding, global_shape):
+        out = torch.Tensor._make_subclass(cls, local)
+        out.sharding = sharding
+        out.global_shape = torch.Size(global_shape)
+        return out
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **(kwargs or {}))
+        src = args[0] if args else None
+        if func in _KEEPS_SHARD and isinstance(src, PinnedShard) \
+                and type(out) is torch.Tensor:
+            return PinnedShard(out, src.sharding, src.global_shape)
+        return out
+
+    @classmethod
+    def zeros(cls, sharding: NamedSharding, global_shape, dtype
+              ) -> "PinnedShard":
+        """This rank's zero shard of an array of ``global_shape`` placed
+        by ``sharding`` (only the shard is allocated)."""
+        local = _chunk(torch.empty(tuple(global_shape), device="meta"),
+                       sharding.mesh, sharding.placements)
+        return cls(_host_buffer(local.shape, dtype, sharding).zero_(),
+                   sharding, global_shape)
+
+    @property
+    def placements(self) -> tuple:
+        return self.sharding.placements
+
+    def local(self) -> torch.Tensor:
+        """The shard as a plain tensor (the same storage)."""
+        with torch._C.DisableTorchFunctionSubclass():
+            return self.view(self.shape)
+
+    def full(self) -> torch.Tensor:
+        """The global array, gathered over the mesh (on its device)."""
+        mesh = self.sharding.mesh
+        return wrap_shard(self.local().to(mesh.device_type), mesh,
+                          self.placements, self.global_shape).full_tensor()
 
 
 @dataclasses.dataclass

@@ -28,12 +28,13 @@ import torch
 from ..configs import ArchConfig, ShapeSpec
 from torch.distributed.tensor import DTensor
 
-from ..distributed.sharding import (MeshPolicy, NamedSharding, batch_specs,
+from ..distributed.sharding import (MeshPolicy, batch_specs,
                                     cache_shardings, is_dtensor, make_rules,
                                     mesh_shape, place, place_leaf,
                                     tree_shardings)
 from ..models import Transformer
-from ..optim import default_optimizer, offload_shardings, offloaded_optimizer
+from ..optim import (default_optimizer, offload_shardings,
+                     offloaded_optimizer, opt_state_shardings)
 from ..tree import leaves, unflatten
 
 __all__ = ["input_specs", "build_cell", "CellArtifacts", "value_and_grad",
@@ -65,10 +66,6 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec
         lshape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
         out["labels"] = spec(lshape, torch.int32)
     return out
-
-
-def _is_sharding(x) -> bool:
-    return isinstance(x, NamedSharding)
 
 
 def _local_bytes(tree) -> int:
@@ -174,25 +171,6 @@ def train_step(model: Transformer, opt, params, opt_state, batch,
     return params, opt_state, {"loss": loss, **metrics}
 
 
-def _opt_state_shardings(mesh, aparams, p_sh, opt_name: str):
-    """Optimizer-state shardings mirroring the param shardings."""
-    rep = NamedSharding(mesh, ())
-    if opt_name == "adamw":
-        return {"m": p_sh, "v": p_sh, "step": rep}
-
-    def factor_sh(p, s):
-        spec = tuple(s.spec) + (None,) * (p.ndim - len(tuple(s.spec)))
-        if p.ndim >= 2:
-            return {"vr": NamedSharding(mesh, spec[:-1]),
-                    "vc": NamedSharding(mesh, spec[:-2] + spec[-1:])}
-        return {"v": s}
-    flat_p = leaves(aparams)
-    flat_s = leaves(p_sh, is_leaf=_is_sharding)
-    return {"factors": unflatten(aparams, [factor_sh(p, s) for p, s
-                                           in zip(flat_p, flat_s)]),
-            "step": rep}
-
-
 def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
                use_pallas: bool = False, offload_opt: bool = False,
                remat: bool = True, grad_accum: int = 1,
@@ -237,7 +215,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh=None, *,
         aopt = opt.init(model.abstract_params())
         o_sh = None
         if mesh is not None:
-            o_sh = _opt_state_shardings(mesh, model.abstract_params(), p_sh,
+            o_sh = opt_state_shardings(mesh, model.abstract_params(), p_sh,
                                         opt.name)
             if offload_opt:
                 o_sh = offload_shardings(o_sh)

@@ -4,8 +4,8 @@ from .adafactor import adafactor
 from .adamw import LeafRule, Optimizer, adamw
 from .offload import (attention_step_program, host_memory_kind,
                       offload_shardings, offloaded_optimizer,
-                      offloaded_state, plan_step_program,
-                      supports_pinned_host)
+                      offloaded_state, opt_state_shardings,
+                      plan_step_program, supports_pinned_host)
 
 
 def default_optimizer(cfg) -> Optimizer:
@@ -19,5 +19,6 @@ def default_optimizer(cfg) -> Optimizer:
 
 __all__ = ["adamw", "adafactor", "Optimizer", "LeafRule",
            "default_optimizer", "offload_shardings", "offloaded_optimizer",
-           "offloaded_state", "plan_step_program", "attention_step_program",
+           "offloaded_state", "opt_state_shardings", "plan_step_program",
+           "attention_step_program",
            "host_memory_kind", "supports_pinned_host"]

@@ -29,7 +29,7 @@ import torch
 
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..distributed.sharding import is_dtensor
+from ..distributed.sharding import is_dtensor, local_shard
 from ..tree import leaves, tree_map
 
 __all__ = ["adamw", "Optimizer", "LeafRule", "apply_rule", "synced",
@@ -64,10 +64,6 @@ class Optimizer:
     rule: Optional[LeafRule] = None
 
 
-def _local(t):
-    return t.to_local() if is_dtensor(t) else t
-
-
 def synced(flat_g: List[torch.Tensor], flat_p: List[torch.Tensor]
            ) -> List[torch.Tensor]:
     """On a mesh, each gradient at its param's placements: partial sums
@@ -81,7 +77,7 @@ def synced(flat_g: List[torch.Tensor], flat_p: List[torch.Tensor]
 def local_ctx(ctx):
     """``begin``'s terms as this rank's tensors (replicated DTensors are
     whole on every rank)."""
-    return {k: _local(v) for k, v in ctx.items()}
+    return {k: local_shard(v) for k, v in ctx.items()}
 
 
 @torch.no_grad()
@@ -97,9 +93,9 @@ def apply_rule(rule: LeafRule, grads, state, params):
         slots = rule.slots(state)
         if rule.elementwise and flat_p and is_dtensor(flat_p[0]):
             ctx = local_ctx(ctx)
-            flat_g, flat_p = [_local(g).contiguous() for g in flat_g], \
-                [_local(p) for p in flat_p]
-            slots = [{k: _local(t) for k, t in s.items()} for s in slots]
+            flat_g, flat_p = [local_shard(g).contiguous() for g in flat_g], \
+                [local_shard(p) for p in flat_p]
+            slots = [{k: local_shard(t) for k, t in s.items()} for s in slots]
         for g, slot, p in zip(flat_g, slots, flat_p):
             rule.leaf(ctx, g, slot, p)
     return params, state
@@ -110,7 +106,7 @@ def _square_sum(g) -> torch.Tensor:
     same way, then across the mesh dims it is sharded over (a replicated
     dim holds the same elements on every rank and is counted once), so a
     1×1 mesh gives the unmeshed sum bit for bit."""
-    gf = _flat(_local(g).contiguous())
+    gf = _flat(local_shard(g).contiguous())
     total = torch.zeros((), dtype=torch.float32, device=gf.device)
     for lo, hi in _slices(gf.numel()):
         total = total + torch.square(gf[lo:hi].to(torch.float32)).sum()

@@ -13,6 +13,15 @@ a leaf when the rule is elementwise (AdamW), else a whole leaf
 at any time is about three pieces.  Where there is no host memory kind
 (a CPU device) the wrapper is the identity, as the reference's is.
 
+On a mesh each rank's state is its own shards, ``PinnedShard``s that
+carry their global shape and sharding.  An elementwise rule updates the
+local shards as they are; any other rule gets each piece's device copies
+back as DTensors at the state's placements, so its means and its clip
+reduce over the sharded mesh dims exactly as the on-card sharded step
+does.  The same pieces also run on a CPU mesh with host-memory shards
+(plain copies in place of the streams), which is how the multi-rank
+path is held on gloo.
+
 ``plan_step_program`` is a miniature training loop (host update blocks +
 device compute blocks) whose offload schedule can be inspected with the
 paper's emitter and counted by the executor; ``attention_step_program``
@@ -35,13 +44,14 @@ import torch
 from repro_torch.core import Program
 
 from ..tree import leaves, tree_map, unflatten
-from ..distributed.sharding import is_dtensor
-from .adamw import (CHUNK, UPDATE_RANGE, Optimizer, _local, local_ctx,
-                    synced)
+from ..distributed.sharding import (NamedSharding, PinnedShard, is_dtensor,
+                                    local_shard, mesh_device_type,
+                                    place_leaf, spec_of, wrap_shard)
+from .adamw import CHUNK, UPDATE_RANGE, Optimizer, local_ctx, synced
 
 __all__ = ["plan_step_program", "attention_step_program",
            "host_memory_kind", "supports_pinned_host", "offload_shardings",
-           "offloaded_optimizer", "offloaded_state"]
+           "opt_state_shardings", "offloaded_optimizer", "offloaded_state"]
 
 _HOST_KIND = "pinned_host"
 
@@ -65,17 +75,37 @@ def offload_shardings(sharding_tree):
     ``NamedSharding`` of the tree moved to the host memory kind of its
     mesh's device; the identity where that device has none (a CPU mesh:
     the state stays where it is).  ``sharding.place`` puts an array there
-    as this rank's own shard in pinned memory, a plain tensor (a DTensor
-    keeps its shard on the mesh's device); the update streams it in and
-    back as it does off a mesh."""
-    from ..distributed.sharding import NamedSharding, mesh_device_type
-
+    as this rank's own shard, a ``PinnedShard`` (a DTensor keeps its
+    shard on the mesh's device); the update streams it in and back as it
+    does off a mesh."""
     def move(s):
         kind = host_memory_kind(mesh_device_type(s.mesh))
         return s if kind is None else dataclasses.replace(
             s, memory_kind=kind)
     return tree_map(move, sharding_tree,
                     is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def opt_state_shardings(mesh, aparams, p_sh, opt_name: str):
+    """Optimizer-state shardings mirroring the param shardings ``p_sh``:
+    AdamW's ``m``/``v`` at their params'; Adafactor's factors at their
+    params' on the dims they keep (``vr`` drops the last dim, ``vc`` the
+    one before it); the step replicated."""
+    rep = NamedSharding(mesh, ())
+    if opt_name == "adamw":
+        return {"m": p_sh, "v": p_sh, "step": rep}
+
+    def factor_sh(p, s):
+        spec = tuple(s.spec) + (None,) * (p.ndim - len(tuple(s.spec)))
+        if p.ndim >= 2:
+            return {"vr": NamedSharding(mesh, spec[:-1]),
+                    "vc": NamedSharding(mesh, spec[:-2] + spec[-1:])}
+        return {"v": s}
+    flat_p = leaves(aparams)
+    flat_s = leaves(p_sh, is_leaf=lambda x: isinstance(x, NamedSharding))
+    return {"factors": unflatten(aparams, [factor_sh(p, s) for p, s
+                                           in zip(flat_p, flat_s)]),
+            "step": rep}
 
 
 def offloaded_state(shapes, device=None):
@@ -98,29 +128,58 @@ def offloaded_state(shapes, device=None):
     return tree_map(place, shapes)
 
 
-def _pieces(rule, grads, slots, params):
+def _sharded_state(opt: Optimizer, params):
+    """Zeros of ``opt``'s state for the DTensor ``params``, placed as the
+    sharded state is (``opt_state_shardings`` over the params'
+    placements) with each array this rank's ``PinnedShard`` under a
+    ``pinned_host`` sharding: no leaf is ever allocated whole.  The
+    shards are host memory on a CPU mesh too (pinned on a card)."""
+    mesh = leaves(params)[0].device_mesh
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
+                                          device="meta"), params)
+    p_sh = tree_map(lambda p: NamedSharding(mesh, spec_of(p)), params)
+    o_sh = leaves(opt_state_shardings(mesh, meta, p_sh, opt.name),
+                  is_leaf=lambda x: isinstance(x, NamedSharding))
+    shapes = opt.init(meta)
+
+    def zeros(t, s):
+        s = dataclasses.replace(s, memory_kind=_HOST_KIND)
+        if t.ndim == 0:
+            return place_leaf(torch.zeros((), dtype=t.dtype), s)
+        return PinnedShard.zeros(s, t.shape, t.dtype)
+    return unflatten(shapes, [zeros(t, s) for t, s in
+                              zip(leaves(shapes), o_sh)])
+
+
+def _pieces(rule, flat_g, slots, flat_p):
     """(g, slot, p) units of the update, in order: slices of at most
     ``CHUNK`` elements of each leaf for an elementwise rule, else whole
     leaves."""
-    for g, slot, p in zip(leaves(grads), slots, leaves(params)):
+    for g, slot, p in zip(flat_g, slots, flat_p):
         if not rule.elementwise or p.numel() <= CHUNK:
             yield g, slot, p
             continue
         gf, pf = g.view(-1), p.view(-1)
-        sf = {k: t.view(-1) for k, t in slot.items()}
+        sf = {k: local_shard(t).view(-1) for k, t in slot.items()}
         for lo in range(0, pf.numel(), CHUNK):
             hi = min(lo + CHUNK, pf.numel())
             yield gf[lo:hi], {k: t[lo:hi] for k, t in sf.items()}, \
                 pf[lo:hi]
 
 
+def _offloaded(t) -> bool:
+    return isinstance(t, PinnedShard) or local_shard(t).is_pinned()
+
+
 def offloaded_optimizer(opt: Optimizer) -> Optimizer:
     """``opt`` with its state in pinned host memory on a card (see the
     module docstring).  ``init`` allocates the state as
-    ``offloaded_state`` does (zeros, what both optimizers start from);
-    ``update`` streams it through the card piece by piece.  The host reads
-    the state after ``torch.cuda.synchronize()`` (the stores run on their
-    own stream).  On the CPU both are ``opt``'s own."""
+    ``offloaded_state`` does (zeros, what both optimizers start from), on
+    a mesh as each rank's ``PinnedShard``s; ``update`` streams it through
+    the card piece by piece.  The host reads the state after
+    ``torch.cuda.synchronize()`` (the stores run on their own stream).  On
+    the CPU ``init`` is ``opt``'s own, and so is ``update`` unless the
+    state is host shards (then the pieces run with plain copies)."""
     rule = opt.rule
     if rule is None:
         raise ValueError(f"{opt.name}: offload needs the update as a "
@@ -128,53 +187,69 @@ def offloaded_optimizer(opt: Optimizer) -> Optimizer:
     streams = {}
 
     def init(params):
-        device = leaves(params)[0].device
-        if host_memory_kind(device) is None:
+        p0 = leaves(params)[0]
+        if host_memory_kind(p0.device) is None:
             return opt.init(params)
-        if is_dtensor(leaves(params)[0]) and not rule.elementwise:
-            raise ValueError(f"{opt.name}: offloaded state on a mesh needs "
-                             "an elementwise rule (AdamW)")
-        # on a mesh: this rank's shards of the state, in pinned memory
+        if is_dtensor(p0):
+            return _sharded_state(opt, params)
         return offloaded_state(opt.init(tree_map(lambda p: torch.empty(
-            _local(p).shape, dtype=p.dtype, device="meta"), params)),
-            device)
+            p.shape, dtype=p.dtype, device="meta"), params)), p0.device)
 
     @torch.no_grad()
     def update(grads, state, params):
         slots = rule.slots(state)
-        if not any(_local(t).is_pinned() for slot in slots
-                   for t in slot.values()):
+        if not any(_offloaded(t) for slot in slots for t in slot.values()):
             return opt.update(grads, state, params)
         device = leaves(params)[0].device
-        if device not in streams:
+        if device.type == "cuda" and device not in streams:
             streams[device] = (torch.cuda.Stream(device),
                                torch.cuda.Stream(device))
         with torch.profiler.record_function(UPDATE_RANGE):
-            _streamed(rule, grads, state, params, slots, *streams[device])
+            _streamed(rule, grads, state, params, slots,
+                      streams.get(device))
         return params, state
 
     return dataclasses.replace(opt, init=init, update=update,
                                name=opt.name + "+offload")
 
 
-def _streamed(rule, grads, state, params, slots, load, store) -> None:
-    """The update piece by piece: each piece's state copied in on ``load``
-    one piece ahead (advancedload), updated on the current stream, copied
-    back into its pinned buffers on ``store`` (delegatestore)."""
-    device = leaves(params)[0].device
-    compute = torch.cuda.current_stream(device)
+def _as_sharded(dev, slot):
+    """A piece's device copies as DTensors at the placements of the host
+    shards they were copied from."""
+    return {k: wrap_shard(t, slot[k].sharding.mesh, slot[k].placements,
+                          slot[k].global_shape) for k, t in dev.items()}
+
+
+def _streamed(rule, grads, state, params, slots, streams) -> None:
+    """The update piece by piece: each piece's state copied in on the
+    load stream one piece ahead (advancedload), updated on the current
+    stream, copied back into its host buffers on the store stream
+    (delegatestore).  ``streams`` is (load, store) on a card; ``None`` on
+    the CPU, where the same copies run in order."""
     flat_p = leaves(params)
+    device = flat_p[0].device
     flat_g = synced(leaves(grads), flat_p)
     ctx = rule.begin(flat_g, state)
-    if flat_p and is_dtensor(flat_p[0]):
+    sharded = bool(flat_p) and is_dtensor(flat_p[0])
+    if sharded and rule.elementwise:
         # each rank updates its own shards against its own state
         ctx = local_ctx(ctx)
-        grads = unflatten(params, [_local(g).contiguous() for g in flat_g])
-        params = unflatten(params, [_local(p) for p in flat_p])
-        slots = [{k: _local(t) for k, t in s.items()} for s in slots]
-    load.wait_stream(store)     # the last update's stores land before reloads
+        flat_g = [local_shard(g).contiguous() for g in flat_g]
+        flat_p = [local_shard(p) for p in flat_p]
+    elif sharded and not all(isinstance(t, PinnedShard) for s in slots
+                             for t in s.values()):
+        raise ValueError("an offloaded non-elementwise update on a mesh "
+                         "needs its state as PinnedShards (offload_"
+                         "shardings, offloaded_optimizer's init)")
+    load, store = streams or (None, None)
+    if load is not None:
+        compute = torch.cuda.current_stream(device)
+        load.wait_stream(store)   # the last update's stores land first
 
     def advancedload(slot):
+        if load is None:
+            return {k: t.to(device, copy=True)
+                    for k, t in slot.items()}, None
         with torch.cuda.stream(load):
             dev = {k: t.to(device, non_blocking=True)
                    for k, t in slot.items()}
@@ -182,16 +257,11 @@ def _streamed(rule, grads, state, params, slots, load, store) -> None:
             ready.record(load)
         return dev, ready
 
-    units = list(_pieces(rule, grads, slots, params))
-    pending = advancedload(units[0][1]) if units else None
-    for i, (g, slot, p) in enumerate(units):
-        dev, ready = pending
-        if i + 1 < len(units):
-            pending = advancedload(units[i + 1][1])
-        compute.wait_event(ready)
-        for t in dev.values():
-            t.record_stream(compute)
-        rule.leaf(ctx, g, dev, p)
+    def delegatestore(slot, dev):
+        if store is None:
+            for k, t in dev.items():
+                slot[k].copy_(t)
+            return
         done = torch.cuda.Event()
         done.record(compute)
         with torch.cuda.stream(store):
@@ -199,6 +269,20 @@ def _streamed(rule, grads, state, params, slots, load, store) -> None:
             for k, t in dev.items():
                 slot[k].copy_(t, non_blocking=True)
                 t.record_stream(store)
+
+    units = list(_pieces(rule, flat_g, slots, flat_p))
+    pending = advancedload(units[0][1]) if units else None
+    for i, (g, slot, p) in enumerate(units):
+        dev, ready = pending
+        if i + 1 < len(units):
+            pending = advancedload(units[i + 1][1])
+        if ready is not None:
+            compute.wait_event(ready)
+            for t in dev.values():
+                t.record_stream(compute)
+        rule.leaf(ctx, g, _as_sharded(dev, slot)
+                  if sharded and not rule.elementwise else dev, p)
+        delegatestore(slot, dev)
 
 
 def plan_step_program(n_steps: int = 4) -> Program:

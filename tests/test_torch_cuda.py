@@ -1127,3 +1127,123 @@ def test_cuda_offloaded_step_on_mesh_equals_on_card_step(nccl_mesh):
     assert state and all(t.is_pinned() for t in state)
     for a, b in zip(sum(out[True], []), sum(out[False], [])):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+def _offloaded_arctic_steps(nccl_mesh, monkeypatch):
+    """One train step of reduced arctic-480b on the 1×1 mesh with its
+    own optimizer (``default_optimizer`` of the published config:
+    Adafactor; the reduced config's parameter count would pick AdamW),
+    the state on the card and offloaded, from the same params and batch.
+    Returns {offload: (cell, params, state)}."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.optim import default_optimizer
+    arctic = get_config("arctic-480b")
+    assert default_optimizer(arctic).name == "adafactor"
+    monkeypatch.setattr(steps, "default_optimizer",
+                        lambda cfg: default_optimizer(arctic))
+    cfg = reduced(arctic)
+    shape = ShapeSpec("t", "train", 64, 2)
+    params = Transformer(cfg).init(torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    for offload in (False, True):
+        cell = steps.build_cell(cfg, shape, nccl_mesh, use_pallas=True,
+                                offload_opt=offload)
+        p = steps.unflatten(params, [t.clone() for t in
+                                     steps.leaves(params)])
+        new_p, new_s, _ = cell.fn(*cell.place(
+            p, default_optimizer(arctic).init(p), batch))
+        torch.cuda.synchronize()
+        assert cell.meta["optimizer"] == "adafactor" + (
+            "+offload" if offload else "")
+        out[offload] = (cell, new_p, new_s)
+    return out
+
+
+def test_cuda_offloaded_adafactor_on_mesh_equals_on_card_step(nccl_mesh,
+                                                              monkeypatch):
+    """The Adafactor twin of the AdamW test above: one train step of
+    reduced arctic-480b on the 1×1 mesh with Adafactor's state offloaded
+    (pinned ``PinnedShard``s; each piece's factors back as DTensors at the
+    on-card state's placements) equals the on-card step bit for bit,
+    params and state; the offloaded arrays stay pinned."""
+    from repro_torch.distributed.sharding import PinnedShard, local_shard
+    from repro_torch.launch import steps
+    out = _offloaded_arctic_steps(nccl_mesh, monkeypatch)
+    (_, p_card, s_card), (_, p_off, s_off) = out[False], out[True]
+    state = [t for t in steps.leaves(s_off) if t.ndim]
+    assert state and all(isinstance(t, PinnedShard) and t.is_pinned()
+                         for t in state)
+    for a, b in zip(steps.leaves(p_off) + steps.leaves(s_off),
+                    steps.leaves(p_card) + steps.leaves(s_card)):
+        assert torch.equal(local_shard(a).cpu(), local_shard(b).cpu())
+
+
+def test_cuda_offloaded_state_checkpoint_on_mesh(nccl_mesh, monkeypatch,
+                                                 tmp_path):
+    """That offloaded Adafactor state saved by ``CheckpointManager`` on the
+    1×1 mesh writes the same files as the on-card state, and restored by
+    its offload shardings (or by itself) comes back bitwise, each array a
+    pinned ``PinnedShard`` of its global shape."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import PinnedShard, local_shard
+    from repro_torch.launch import steps
+    out = _offloaded_arctic_steps(nccl_mesh, monkeypatch)
+    (_, _, s_card), (cell, _, s_off) = out[False], out[True]
+    CheckpointManager(tmp_path / "card").save(1, s_card, blocking=True)
+    mgr = CheckpointManager(tmp_path / "off")
+    mgr.save(1, s_off, blocking=True)
+    a, b = (tmp_path / d / "step_0000000001" for d in ("off", "card"))
+    names = sorted(p.name for p in b.iterdir())
+    assert names == sorted(p.name for p in a.iterdir())
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+    for shardings in (cell.in_shardings[1], None):
+        back, _ = mgr.restore(1, s_off, shardings=shardings)
+        for x, y in zip(steps.leaves(back), steps.leaves(s_off)):
+            if isinstance(y, PinnedShard):
+                assert isinstance(x, PinnedShard) and x.is_pinned()
+                assert x.global_shape == y.global_shape
+            elif shardings is None:
+                continue      # the step's DTensor comes back plain
+            assert torch.equal(local_shard(x).cpu(),
+                               local_shard(y).cpu())
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_cuda_offloaded_init_on_mesh_places_as_the_cell(nccl_mesh, name,
+                                                        monkeypatch):
+    """``offloaded_optimizer(opt).init`` of DTensor params on the 1×1
+    mesh gives the state ``build_cell(offload_opt=True)`` places for
+    ``opt``: the same tree, each array a pinned zero ``PinnedShard`` of
+    the same global shape, local shape and placements, the step a
+    DTensor."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.sharding import PinnedShard, is_dtensor
+    from repro_torch.launch import steps
+    from repro_torch.optim import adafactor, adamw, offloaded_optimizer
+    make = {"adamw": adamw, "adafactor": adafactor}[name]
+    monkeypatch.setattr(steps, "default_optimizer", lambda cfg: make())
+    cfg = reduced(get_config("qwen2.5-14b"))
+    params = Transformer(cfg).init(torch.Generator("cuda").manual_seed(0))
+    cell = steps.build_cell(cfg, ShapeSpec("t", "train", 64, 2), nccl_mesh,
+                            offload_opt=True)
+    batch = {k: torch.zeros((2, 64), dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+    dparams, placed, _ = cell.place(params, make().init(params), batch)
+    got = offloaded_optimizer(make()).init(dparams)
+    flat_got, flat_want = steps.leaves(got), steps.leaves(placed)
+    assert len(flat_got) == len(flat_want)
+    for a, b in zip(flat_got, flat_want):
+        assert type(a) is type(b)
+        if isinstance(b, PinnedShard):
+            assert a.is_pinned() and not a.any()
+            assert (a.shape, a.global_shape, a.dtype) == \
+                (b.shape, b.global_shape, b.dtype)
+            assert tuple(a.placements) == tuple(b.placements)
+        else:
+            assert is_dtensor(a) and a.shape == b.shape

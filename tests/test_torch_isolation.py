@@ -5,7 +5,10 @@ points (the backend, ``execute``, ``Transformer.init`` and ``init_cache``,
 ``ServeRuntime``, ``launch.serve``, ``launch.train``, the prefetch
 iterator, the offloaded optimizer's state placement, and the mesh's
 ``make_mesh`` and ``init_process_group``) raise instead of running on the
-CPU.  Importing it makes no process group."""
+CPU.  Importing it makes no process group.  The port's benchmark scripts
+(``benchmarks/port_*.py``: the paper-table harness ``port_run.py``, the
+tuning trajectory ``port_trajectory.py``, the roofline report
+``port_roofline_report.py`` and the rest) import neither either."""
 import os
 import re
 import shutil
@@ -103,11 +106,42 @@ def test_port_imports_neither_jax_nor_reference():
     assert res.stdout.startswith("isolated")
 
 
+# the scripts that must stand alone beside the package
+PORT_SCRIPTS = ("port_run", "port_trajectory", "port_roofline_report")
+
+_SCRIPT_PROBE = r"""
+import importlib, sys
+sys.path.insert(0, sys.argv[1])
+for name in sys.argv[2:]:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "repro"
+                or m.startswith("repro."))
+assert not leaked, leaked
+print("isolated", len(sys.argv) - 2)
+"""
+
+
+def test_port_scripts_import_neither_jax_nor_reference():
+    """Importing every ``benchmarks/port_*.py`` (the three new tools
+    among them) pulls in neither JAX nor the reference package."""
+    names = sorted(p.stem for p in (ROOT / "benchmarks").glob("port_*.py"))
+    assert set(PORT_SCRIPTS) <= set(names)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE,
+                          str(ROOT / "benchmarks"), *names], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith(f"isolated {len(names)}")
+
+
 def test_no_import_of_jax_or_reference_in_sources():
     pattern = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "benchmarks").glob("port_*.py"))
     assert len(files) > 20
+    assert all((ROOT / "benchmarks" / f"{n}.py") in files
+               for n in PORT_SCRIPTS)
     for f in files:
         assert not pattern.search(f.read_text()), f
 

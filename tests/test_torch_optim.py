@@ -206,8 +206,8 @@ def test_offload_pieces_give_the_whole_update(name, monkeypatch):
         opt.update(params_from_numpy(g, "cpu"), s1, p1)
         grads = params_from_numpy(g, "cpu")
         ctx = opt.rule.begin(leaves(grads), s2)
-        units = list(offload._pieces(opt.rule, grads, opt.rule.slots(s2),
-                                     p2))
+        units = list(offload._pieces(opt.rule, leaves(grads),
+                                     opt.rule.slots(s2), leaves(p2)))
         sizes = [p.numel() for p in leaves(p2)]
         assert len(units) == (sum(-(-n // 11) for n in sizes)
                               if name == "adamw" else len(sizes))
