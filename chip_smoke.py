@@ -146,7 +146,15 @@ Drives the port's main path through its public entry points and checks it:
    offloaded state pinned, flash's sm90 kernel twice per layer a step in
    the offloaded run (the forward and its recompute) and nothing else,
    each run's peak and step ms; then that state saved by ``CheckpointManager``
-   and restored by its offload shardings, bitwise and pinned;
+   and restored by its offload shardings, bitwise and pinned; (f)
+   moe_mesh: qwen3-moe-30b-a3b at full width, bf16, 2 of 48 layers,
+   B = 1, S = 4096, ``loss`` with kernels through the MoE layer on the
+   mesh (``moe_apply`` with its policy: the dispatch buffer and the
+   expert products at the ``moe_buf`` / ``moe_hidden`` placements, the
+   routing on the gathered tokens) against the unmeshed loss, within
+   FORWARD_BF16_TOL; flash's sm90 kernel once per layer; its ms and the
+   device peak.  The 1×1 mesh makes every shard whole, so this proves
+   the code path on the card, not a placement;
 12. paper_tables: ``benchmarks/port_run.py``'s rows on the card (Table 2,
    Figs. 4–6, train_overlap) at the reference's default sizes, one JSON
    line per row; every Fig. 6 row moves no more with the optimized plan
@@ -162,8 +170,8 @@ Each kernel's ``launches`` in the kernels line sums the paths that ran it:
 attn_step, model_forward, train (a), tuner, mesh and trajectory (the
 attn_step gate program's tuning) for flash's SIMT route
 (``flash_attention``), model_forward (the zoo's runs included), train
-(b), mesh (c)'s bf16 step and mesh (e)'s offloaded step for its sm90
-route (``flash_attention_sm90``), wkv6 and
+(b), mesh (c)'s bf16 step, mesh (e)'s offloaded step and mesh (f)'s
+forward for its sm90 route (``flash_attention_sm90``), wkv6 and
 rglru_scan (model_forward and mesh), rmsnorm_path for rmsnorm; comparison
 launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
@@ -231,6 +239,8 @@ MESH_HIDDEN_TOL = 1e-4
 MESH_FORWARD_LAYERS = 4
 MESH_FORWARD = ("rwkv6-3b", "recurrentgemma-2b")
 MESH_TIMED_STEPS = 3        # (c) timed, after one warm step, per run
+MESH_MOE = "qwen3-moe-30b-a3b"   # (f) the MoE layer on the mesh
+MESH_MOE_LAYERS = 2
 # mesh (c), bf16: the first step's gradient leaves meshed vs unmeshed,
 # normwise (the meshed cross-entropy takes its gold logit by a one-hot and
 # its log-sum-exp by hand: fp32 rounding apart, which bf16 rounding of the
@@ -2637,10 +2647,80 @@ def _mesh_offload(mesh, smi: str) -> dict:
     return counts
 
 
+def _mesh_moe(mesh, smi: str) -> dict:
+    """mesh (f): ``Transformer.loss`` of MESH_MOE at full width, bf16,
+    MESH_MOE_LAYERS deep, B = 1, S = 4096, with kernels, its params and
+    batch placed by the train rules and the MoE layer run with its policy
+    on the mesh, against the unmeshed loss: within FORWARD_BF16_TOL,
+    flash's sm90 kernel once per layer.  A second meshed forward and a
+    second unmeshed one are timed (CUDA events; the difference is
+    DTensor's host dispatch, reported, not gated).  Returns the first
+    meshed run's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshPolicy, distribute
+    from repro_torch.models import Transformer
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MESH_MOE), n_layers=MESH_MOE_LAYERS)
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = Transformer(cfg, use_pallas=True)
+    params = model.init(gen, dtype=torch.bfloat16)
+    _perturb_constants(params, gen)
+    batch = _zoo_batch(cfg, gen, 4096)
+    before = _launch_counts()
+    with torch.no_grad():
+        want, want_m = model.loss(params, batch)           # compares
+        want, want_aux = float(want), float(want_m["aux"])
+        dp, rules = _mesh_params(model, params, mesh, "train")
+        db = {k: distribute(v, mesh, ("data", None)) for k, v in
+              batch.items()}
+        policy = MeshPolicy(rules, cfg)
+        _set_launch_counts(dict.fromkeys(_counters(), 0))  # the run starts
+        got, got_m = model.loss(dp, db, policy)
+        torch.cuda.synchronize()
+        counts = _launch_counts()                           # ... and ends
+        ms = {}
+        for run, fn in (("meshed", lambda: model.loss(dp, db, policy)),
+                        ("unmeshed", lambda: model.loss(params, batch))):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            fn()                                            # timed
+            e1.record()
+            torch.cuda.synchronize()
+            ms[run] = e0.elapsed_time(e1)
+    _set_launch_counts(before)
+    got, aux = float(got.full_tensor()), float(got_m["aux"].full_tensor())
+    err = abs(got - want) / abs(want)
+    expect = _expected_launches(cfg, torch.bfloat16)
+    check(counts == expect, f"mesh (f) {MESH_MOE}: launches {counts}, "
+          f"want {expect}")
+    check(math.isfinite(got) and err <= FORWARD_BF16_TOL,
+          f"mesh (f) {MESH_MOE}: loss meshed {got} vs unmeshed {want}, "
+          f"normwise {err} > {FORWARD_BF16_TOL}")
+    report("mesh", run="moe_bf16_meshed_vs_unmeshed", model=MESH_MOE,
+           n_layers=MESH_MOE_LAYERS, of_layers=get_config(MESH_MOE).n_layers,
+           batch=1, seq=4096, loss_meshed=got, loss_unmeshed=want,
+           loss_rel_err=err, router_aux_meshed=aux,
+           router_aux_unmeshed=want_aux, tol=FORWARD_BF16_TOL,
+           launches=counts, meshed_forward_ms=ms["meshed"],
+           unmeshed_forward_ms=ms["unmeshed"],
+           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+           seconds=time.perf_counter() - t, card=smi)
+    del params, dp, batch, db
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_mesh(smi: str) -> dict:
     """The mesh on the card (see the module docstring, 11): a world-size-1
     NCCL group, a 1×1 ("data", "model") ``DeviceMesh`` through
-    ``launch.mesh.make_mesh``, parts (a)–(e), the group destroyed at the
+    ``launch.mesh.make_mesh``, parts (a)–(f), the group destroyed at the
     end.  Returns the launches of the parts' main-path runs."""
     import torch.distributed as dist
 
@@ -2656,6 +2736,7 @@ def phase_mesh(smi: str) -> dict:
         parts = [_mesh_attn_step(mesh, smi), _mesh_train(mesh, smi)]
         parts += [_mesh_forward(mesh, name, smi) for name in MESH_FORWARD]
         parts.append(_mesh_offload(mesh, smi))
+        parts.append(_mesh_moe(mesh, smi))
         for part in parts:
             for kernel, n in part.items():
                 launches[kernel] += n

@@ -120,6 +120,7 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_spec: str, outdir: Path, *,
             "opt_bytes": low["opt_bytes"],
             "opt_on_host": low["opt_on_host"],
             "cache_bytes": low["cache_bytes"],
+            "batch_bytes": low["batch_bytes"],
         },
         "roofline": roof,
         "n_devices": n,

@@ -104,16 +104,20 @@ class CellArtifacts:
     def lower(self) -> Dict[str, Any]:
         """One run of the step on the abstract (``meta``) arguments under
         ``collective_trace``.  Returns the per-device bytes of the params,
-        the optimizer state (host-resident under ``offload_opt``) and the
-        cache, the per-device FLOPs and the collective records."""
+        the optimizer state (host-resident under ``offload_opt``), the
+        cache and the batch (tokens, labels, positions: with the others,
+        the reference's ``argument_bytes``), the per-device FLOPs and the
+        collective records."""
         from ..roofline.analysis import trace_step
         args = self.args_abstract
         rec = trace_step(self.fn, *args)
         kind = self.meta["kind"]
+        batch = args[1:] if kind == "prefill" else args[2:]
         out = {"param_bytes": _local_bytes(args[0]),
                "opt_bytes": _local_bytes(args[1]) if kind == "train" else 0,
                "cache_bytes": _local_bytes(args[1]) if kind == "decode"
                else 0,
+               "batch_bytes": sum(_local_bytes(a) for a in batch),
                "opt_on_host": bool(self.meta.get("offload_opt")),
                **rec}
         return out

@@ -136,6 +136,45 @@ def _fold_heads(q, K: int, G: int):
     return split_dim(q, 2, (K, G))
 
 
+def _head_axis(q, cfg):
+    """The mesh dim of "model" when q (B, S, K, G, D) is whole over it
+    although its heads could split: K does not divide the axis (the
+    ``q5`` spec replicates it) but the H = K*G query heads do.  The
+    reference's GSPMD then splits the attention by query heads, the
+    placement the output projection's heads propagate back; ``None``
+    elsewhere."""
+    if not is_dtensor(q) or "model" not in q.device_mesh.mesh_dim_names:
+        return None
+    i = q.device_mesh.mesh_dim_names.index("model")
+    n = q.device_mesh.size(i)
+    if n == 1 or q.placements[i] != Replicate() \
+            or cfg.n_heads % n or cfg.n_kv_heads % n == 0:
+        return None
+    return i
+
+
+def _attention_by_heads(core, q, k, v, axis: int):
+    """``core`` on this rank's H/n query heads (n ranks on mesh dim
+    ``axis``, over which q, k and v are whole and placed alike): each
+    head attends with its own KV head (a fold of G = 1), and the output
+    (B, S, H, D) is split by heads over ``axis``."""
+    B, S, K, G, D = q.shape
+    H = K * G
+    nh = H // q.device_mesh.size(axis)
+    j = q.device_mesh.get_local_rank(axis)
+    out = tuple(Shard(2) if d == axis else p
+                for d, p in enumerate(q.placements))
+
+    def body(ql, kl, vl):
+        Bl, Sl = ql.shape[:2]
+        heads = torch.arange(j * nh, (j + 1) * nh, device=ql.device)
+        qh = ql.reshape(Bl, Sl, H, D)[:, :, j * nh:(j + 1) * nh, None]
+        o = core(qh.contiguous(), kl[:, :, heads // G],
+                 vl[:, :, heads // G])
+        return o.reshape(Bl, Sl, nh, D)
+    return local_apply(body, list(out), q, k, v)
+
+
 def attn_apply(params, x, cfg, positions, *, policy=None, window: int = 0,
                use_pallas: bool = False):
     """Training / prefill self-attention.  x: (B, S, d_model).  Returns
@@ -158,7 +197,9 @@ def attn_apply(params, x, cfg, positions, *, policy=None, window: int = 0,
     else:
         def core(q, k, v):
             return blockwise_attention(q, k, v, causal=True, window=window)
-    o = merge_dims(local_apply(core, "like", q, k, v), 2, 2)
+    axis = _head_axis(q, cfg) if policy is not None else None
+    o = (_attention_by_heads(core, q, k, v, axis) if axis is not None
+         else merge_dims(local_apply(core, "like", q, k, v), 2, 2))
     w_o = acts(policy, params["w_o"], "w_attn_out")
     return torch.einsum("bshk,hkd->bsd", o, w_o), (k, v)
 

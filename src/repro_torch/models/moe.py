@@ -34,9 +34,12 @@ one does instead:
   that takes ``n`` assignments (each of the ``n`` adds rounds by at most
   half an ulp of a partial sum below ``n/(T*k)``).
 
-On a mesh (DTensor inputs) ``moe_apply`` routes the whole batch on every
-rank: tokens and experts are gathered to every rank (replicated), so
-the routing and the capacity are the unsharded ones.  ``moe_apply_ep``
+On a mesh (DTensor inputs) ``moe_apply`` places its work as the
+reference's GSPMD does under the ``moe_buf`` / ``moe_hidden`` specs:
+every rank routes the whole batch (the routing and the capacity are the
+unsharded ones), fills and runs only its own experts' rows of the
+dispatch buffer against the expert weights at their own placements, and
+one reduction sums the ranks' partial outputs.  ``moe_apply_ep``
 is the reference's expert-parallel ``shard_map`` as a ``local_map``:
 each "model" rank owns ``E / n_model`` experts and its batch rows, the
 FSDP gather of its expert weights over "data" is an all-gather, and the
@@ -49,8 +52,9 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import batch_axes, is_dtensor, local_apply
-from .layers import P, ffn_apply, ffn_spec, gelu
+from ..distributed.sharding import (batch_axes, is_dtensor, local_apply,
+                                    placements)
+from .layers import P, acts, ffn_apply, ffn_spec, gelu
 
 __all__ = ["moe_spec", "moe_apply", "moe_apply_ep"]
 
@@ -95,24 +99,53 @@ def _counts(flat_e, E: int):
     return torch.bincount(flat_e, minlength=E)
 
 
-def _dispatch(flat_e, counts, capacity: int):
+def _dispatch(flat_e, counts, capacity: int, lo: int = 0,
+              n_loc: int = 0):
     """Sort the T*k assignments by expert (stably) and rank each within
     its expert's run.  Returns, in sorted order: the permutation
     ``order`` (sorted position -> flat assignment index t*k + j),
-    ``keep`` (rank < capacity) and each assignment's buffer ``slot``,
-    ``e*C + rank`` if kept, else the sink row ``E*C``."""
+    ``keep`` (rank < capacity, and the expert one of ``lo .. lo+n_loc-1``)
+    and each assignment's row in the buffer of those experts,
+    ``(e-lo)*C + rank`` if kept, else the sink row ``n_loc*C``.
+    ``n_loc`` 0 means every expert."""
     E = counts.shape[0]
+    n_loc = n_loc or E
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(flat_e.shape[0], device=flat_e.device) - offsets[se]
-    keep = rank < capacity
-    return order, keep, torch.where(keep, se * capacity + rank,
-                                    E * capacity)
+    keep = (rank < capacity) & (se >= lo) & (se < lo + n_loc)
+    return order, keep, torch.where(keep, (se - lo) * capacity + rank,
+                                    n_loc * capacity)
 
 
-def _experts(ew, buf, activation: str):
-    """The grouped FFN: (E, C, d) -> (E, C, d) over stacked weights."""
+def _fill(xf, order, slot, rows: int, k: int):
+    """The dispatch buffer: row ``slot[i]`` holds token ``order[i] // k``
+    (kept slots are distinct); the sink row ``rows`` is cut off."""
+    buf = torch.zeros((rows + 1, xf.shape[-1]), dtype=xf.dtype,
+                      device=xf.device)
+    buf[slot] = xf[order // k]
+    return buf[:rows]
+
+
+def _combine(y, order, keep, slot, gate):
+    """Each (token, choice)'s expert output, weighted by its gate and
+    summed over the k choices, in fp32: (T, d).  ``y`` (rows, d) holds
+    the buffer's outputs; the sorted slots go back to (token, choice)
+    order through the inverse permutation, so no scatter-add sums in a
+    varying order."""
+    T, k = gate.shape
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    keep_u, slot_u = keep[inv], slot[inv]
+    w = torch.where(keep_u, gate.reshape(-1), 0.0)
+    gathered = y[torch.where(keep_u, slot_u, 0)].float() * w[:, None]
+    return gathered.reshape(T, k, -1).sum(dim=1)
+
+
+def _experts(ew, buf, activation: str, policy=None):
+    """The grouped FFN: (E, C, d) -> (E, C, d) over stacked weights; on a
+    mesh its hidden takes the ``moe_hidden`` spec, as the reference's."""
     if activation in ("swiglu", "geglu"):
         act = F.silu if activation == "swiglu" else gelu
         h = act(torch.bmm(buf, ew["w_gate"])) * torch.bmm(buf, ew["w_up"])
@@ -120,55 +153,106 @@ def _experts(ew, buf, activation: str):
         h = torch.square(F.relu(torch.bmm(buf, ew["w_up"])))
     else:
         raise ValueError(activation)
-    return torch.bmm(h, ew["w_down"])
+    return torch.bmm(acts(policy, h, "moe_hidden"), ew["w_down"])
+
+
+def _aux(probs, counts, T: int, k: int):
+    """The Switch load-balancing loss ``E * sum_e f_e * p_e``."""
+    E = counts.shape[0]
+    return E * torch.sum(probs.mean(dim=0) * (counts.float() / (T * k)))
 
 
 def moe_apply(params, x, cfg, *, policy=None) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
     """x: (B, S, d).  Returns (out (B, S, d), router aux loss (fp32))."""
     if is_dtensor(x):
-        from torch.distributed.tensor import Replicate
-        rep = (Replicate(),) * x.device_mesh.ndim
-        return local_apply(lambda x, p: moe_apply(p, x, cfg), (rep, rep),
-                           x.redistribute(placements=rep),
-                           _tree_redistribute(params, rep))
+        return _moe_apply_mesh(params, x, cfg, policy)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     C = _capacity(T, E, k, cfg.capacity_factor)
     xf = x.reshape(T, d)
-    dev = x.device
 
     # --- routing ----------------------------------------------------------
     probs, gate, expert = _route(params["router"], xf, k)      # (T, k)
     flat_e = expert.reshape(-1)                               # (T*k,)
     counts = _counts(flat_e, E)
-    # load-balancing aux loss (Switch):  E * sum_e f_e * p_e
-    aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (T * k)))
+    aux = _aux(probs, counts, T, k)
 
-    # --- sort-based dispatch (static shapes) ------------------------------
+    # --- sort-based dispatch (static shapes), the grouped FFN, combine ----
     order, keep, slot = _dispatch(flat_e, counts, C)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xf[order // k]          # kept slots are distinct
-    y = _experts(params["experts"], buf[:E * C].reshape(E, C, d),
-                 cfg.activation).reshape(E * C, d)
-
-    # --- combine: back to (token, choice) order, summed over the k choices
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * k, device=dev)
-    keep_u, slot_u = keep[inv], slot[inv]
-    w = torch.where(keep_u, gate.reshape(-1), 0.0)
-    gathered = y[torch.where(keep_u, slot_u, 0)].float() * w[:, None]
-    out = gathered.reshape(T, k, d).sum(dim=1).to(x.dtype)
+    buf = _fill(xf, order, slot, E * C, k).reshape(E, C, d)
+    y = _experts(params["experts"], buf, cfg.activation).reshape(E * C, d)
+    out = _combine(y, order, keep, slot, gate).to(x.dtype)
 
     if cfg.moe_dense_residual:
         out = out + ffn_apply(params["dense"], xf, cfg.activation)
     return out.reshape(B, S, d), aux
 
 
-def _tree_redistribute(tree, plc):
-    return {k: _tree_redistribute(v, plc) if isinstance(v, dict)
-            else v.redistribute(placements=plc) for k, v in tree.items()}
+def _moe_apply_mesh(params, x, cfg, policy):
+    """``moe_apply`` on DTensors, placed as the reference's GSPMD places
+    it.  The routing, the capacity and the sort are the unsharded ones:
+    every rank routes all T tokens (the input gathered, the router
+    whole).  The dispatch buffer (E, C, d) takes the ``moe_buf`` spec,
+    its experts split over "model" where they divide it: each rank fills
+    only the rows of its own experts.  The expert products run on the
+    buffer's shards and the expert weights at their own placements,
+    never gathered whole; the hidden takes ``moe_hidden``.  Each rank
+    combines its experts' outputs into a partial (T, d) in fp32, and one
+    reduction sums them into x's placements."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    C = _capacity(T, E, k, cfg.capacity_factor)
+    # without a policy nothing is pinned: the buffer is whole on each rank
+    buf_plc = placements(mesh, policy.spec("moe_buf", 3)
+                         if policy is not None else None)
+    # this rank's experts: lo .. lo + n_loc - 1
+    n_loc, lo = E, 0
+    for i, p in enumerate(buf_plc):
+        if p == Shard(0):
+            n_loc //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * n_loc
+    tok = x.redistribute(placements=rep)
+    router = params["router"].redistribute(placements=rep)
+
+    def route(xl, r):
+        probs, gate, expert = _route(r, xl.reshape(T, d), k)
+        return gate, expert, _aux(probs, _counts(expert.reshape(-1), E),
+                                  T, k)
+    gate, expert, aux = local_apply(route, (rep, rep, rep), tok, router)
+
+    def slots(e):
+        flat_e = e.reshape(-1)
+        return _dispatch(flat_e, _counts(flat_e, E), C, lo, n_loc)
+
+    def dispatch(xl, e):
+        order, _, slot = slots(e)
+        return _fill(xl.reshape(T, d), order, slot, n_loc * C, k).reshape(
+            n_loc, C, d)
+    buf = acts(policy, local_apply(dispatch, list(buf_plc), tok, expert),
+               "moe_buf")
+    y = acts(policy, _experts(params["experts"], buf, cfg.activation,
+                              policy), "moe_buf")
+    if tuple(y.placements) != buf_plc:
+        y = y.redistribute(placements=buf_plc)
+
+    def combine(yl, g, e):
+        order, keep, slot = slots(e)
+        return _combine(yl.reshape(n_loc * C, d), order, keep, slot,
+                        g).reshape(B, S, d)
+    part = tuple(Partial() if p == Shard(0) else Replicate()
+                 for p in buf_plc)
+    out = local_apply(combine, list(part), y, gate, expert)
+    out = out.redistribute(placements=x.placements).to(x.dtype)
+    if cfg.moe_dense_residual:
+        out = out + ffn_apply(params["dense"], x, cfg.activation,
+                              policy=policy)
+    return out, aux
 
 
 def moe_apply_ep(params, x, cfg, mesh, *, policy=None):
@@ -239,23 +323,12 @@ def _ep_body(xl, router, ew, cfg, j: int, E_loc: int, n_batch: int):
     T = Bl * Sl
     C = _capacity(T, E, k, cfg.capacity_factor)
     xf = xl.reshape(T, d)
-    dev = xl.device
     probs, gate, expert = _route(router, xf, k)
     flat_e = expert.reshape(-1)
     counts = _counts(flat_e, E)
-    aux = E * torch.sum(probs.mean(dim=0) * (counts.float() / (T * k)))
-    order, keep, slot = _dispatch(flat_e, counts, C)
-    se = flat_e[order]
-    keep = keep & (se >= j * E_loc) & (se < (j + 1) * E_loc)
-    slot = torch.where(keep, slot - j * E_loc * C, E_loc * C)
-    buf = torch.zeros((E_loc * C + 1, d), dtype=xl.dtype, device=dev)
-    buf[slot] = xf[order // k]
-    y = _experts(ew, buf[:E_loc * C].reshape(E_loc, C, d),
-                 cfg.activation).reshape(E_loc * C, d)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * k, device=dev)
-    keep_u, slot_u = keep[inv], slot[inv]
-    w = torch.where(keep_u, gate.reshape(-1), 0.0)
-    gathered = y[torch.where(keep_u, slot_u, 0)].float() * w[:, None]
-    out = gathered.reshape(T, k, d).sum(dim=1).to(xl.dtype)
+    aux = _aux(probs, counts, T, k)
+    order, keep, slot = _dispatch(flat_e, counts, C, j * E_loc, E_loc)
+    buf = _fill(xf, order, slot, E_loc * C, k).reshape(E_loc, C, d)
+    y = _experts(ew, buf, cfg.activation).reshape(E_loc * C, d)
+    out = _combine(y, order, keep, slot, gate).to(xl.dtype)
     return out.reshape(Bl, Sl, d), aux * (float(j == 0) / n_batch)

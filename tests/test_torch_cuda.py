@@ -1095,6 +1095,40 @@ def test_cuda_build_cell_on_mesh_matches_unmeshed(nccl_mesh):
     assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
 
 
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "arctic-480b"])
+def test_cuda_moe_on_mesh_matches_unmeshed(nccl_mesh, name):
+    """The MoE layer's mesh path (``moe_apply`` on DTensors with its
+    policy: routing on the gathered tokens, the dispatch buffer at the
+    ``moe_buf`` placement, one reduction of the partial outputs) on the
+    1×1 mesh, reduced, fp32: loss, router aux and every gradient within
+    1e-6 (relative, normwise) of the unmeshed layer's."""
+    from repro_torch.distributed.sharding import (MeshPolicy, distribute,
+                                                  make_rules, place,
+                                                  tree_shardings)
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.tree import leaves
+    cfg = reduced(get_config(name))
+    model = Transformer(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    rules = make_rules(nccl_mesh, "train")
+    dp = place(params, tree_shardings(rules, params, model.logical_axes()))
+    db = {k: distribute(v, nccl_mesh, ("data", None))
+          for k, v in batch.items()}
+    loss, met, grads = value_and_grad(model, dp, db,
+                                      policy=MeshPolicy(rules, cfg))
+    want, want_m, want_g = value_and_grad(model, params, batch)
+    for got, ref in ((loss, want), (met["aux"], want_m["aux"])):
+        got, ref = float(got.full_tensor()), float(ref)
+        assert abs(got - ref) <= 1e-6 * abs(ref), (got, ref)
+    for g, w in zip(leaves(grads), leaves(want_g)):
+        g = g.full_tensor()
+        assert float((g - w).norm()) <= 1e-6 * max(float(w.norm()), 1e-30)
+
+
 def test_cuda_offloaded_step_on_mesh_equals_on_card_step(nccl_mesh):
     """One train step of reduced qwen2.5-14b on the 1×1 mesh with the
     AdamW state offloaded (each rank's shards in pinned host memory,

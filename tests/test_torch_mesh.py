@@ -33,6 +33,10 @@ Held here, on a (2, 4) ("data", "model") mesh unless said otherwise:
   * decode of reduced qwen2.5-14b, recurrentgemma-2b and rwkv6-3b with
     the cache sharded (its sequence over "model"), within 1e-5 of the
     unsharded logits;
+  * the MoE layer without ``moe_ep`` (reduced qwen3-moe-30b-a3b and
+    arctic-480b, from the reference's weights): loss, router aux and every
+    gradient against the unsharded layer and the reference's sharded one,
+    and no rank holding a whole expert-weight leaf;
   * EP MoE: reduced qwen3-moe-30b-a3b at capacity factor 1000 with
     ``moe_ep`` within 5e-3 of the dense MoE loss, its gradients finite
     and nonzero (the reference's ``test_ep_moe_matches_gspmd_moe``);
@@ -53,8 +57,10 @@ Held here, on a (2, 4) ("data", "model") mesh unless said otherwise:
 """
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -64,7 +70,13 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")
 DRY_ARCHS = ("internlm2-20b", "qwen3-moe-30b-a3b", "recurrentgemma-2b",
              "rwkv6-3b")
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b")
 N = 64                     # the polybench size of the 3mm / gemm checks
+# each subprocess's limit: alone the reference's side takes ~20 s, the two
+# spawns ~15 s and ~45 s and the dry-run ~60 s, but they share the
+# machine with the rest of the suite (173 s for all four in a full run
+# with 6 workers, against 96 s alone)
+JOB_TIMEOUT = 600
 # a calibration only rank 0's tune cache holds (far from the defaults)
 CALIBRATION = {"pcie_bw": 1.0e6, "launch_overhead_s": 1.0e-3,
                "sync_overhead_s": 1.0e-3}
@@ -182,6 +194,30 @@ tree = {"w": jax.device_put(jnp.arange(64, dtype=jnp.float32).reshape(8, 8),
 CheckpointManager(os.path.join(out_dir, "ckpt_ref")).save(1, tree,
                                                           blocking=True)
 
+# the MoE layer on the mesh (no moe_ep): loss, router aux and gradients
+# of reduced qwen3-moe-30b-a3b and arctic-480b, sharded by the train rules
+from repro.distributed.sharding import (MeshPolicy, batch_specs, make_rules,
+                                        tree_shardings)
+res["moe"] = {}
+for arch in %(MOE)r:
+    c = reduced(get_config(arch))
+    m = Transformer(c)
+    prm = m.init(jax.random.key(0))
+    rules = make_rules(mesh, "train")
+    pol = MeshPolicy(rules, c)
+    mrng = np.random.default_rng(2)
+    b = {k: mrng.integers(0, c.vocab, (8, 32)).astype(np.int32)
+         for k in ("tokens", "labels")}
+    f = jax.jit(lambda p, bb: jax.value_and_grad(m.loss, has_aux=True)(
+        p, bb, pol), in_shardings=(tree_shardings(rules, prm,
+                                                  m.logical_axes()),
+                                   batch_specs(rules, c, "train", b)))
+    with mesh:
+        (loss, met), grads = f(prm, {k: jnp.asarray(v) for k, v in b.items()})
+    dump(f"ref_moe_{arch}.npz", {"params": prm, "grads": grads})
+    np.savez(os.path.join(out_dir, f"ref_moe_{arch}_batch.npz"), **b)
+    res["moe"][arch] = {"loss": float(loss), "aux": float(met["aux"])}
+
 # the dropped records of the dry-run's cells
 res["dropped"] = {}
 for arch in %(DRY)r:
@@ -194,26 +230,36 @@ json.dump(res, open(os.path.join(out_dir, "ref.json"), "w"))
 """
 
 
-def _run(args, timeout, env_extra=None):
+def _run(name, args, timeout, env_extra=None):
+    """Start one side of the checks (``name`` says which in a failure):
+    its own environment, the caller's ``TMPDIR``, one thread per
+    process.  ``timeout`` counts from this start."""
     env = {"PYTHONPATH": SRC, "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "HOME": os.environ.get("HOME", "/tmp"), "JAX_PLATFORMS": "cpu",
            "OMP_NUM_THREADS": "1", **(env_extra or {})}
     if "TMPDIR" in os.environ:
         env["TMPDIR"] = os.environ["TMPDIR"]
-    return subprocess.Popen(args, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, env=env), \
-        timeout
+    return (name, subprocess.Popen(args, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True,
+                                   env=env, start_new_session=True),
+            time.monotonic() + timeout)
 
 
-def _wait(proc_timeout):
-    proc, timeout = proc_timeout
+def _wait(job):
+    name, proc, deadline = job
+    t0 = time.monotonic()
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(timeout=max(deadline - t0, 1.0))
     except subprocess.TimeoutExpired:
-        proc.kill()
+        # the whole session: a spawn's ranks hold the pipes open too
+        os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        raise AssertionError(f"timed out after {timeout} s:\n{out}\n{err}")
-    assert proc.returncode == 0, f"stdout:\n{out}\nstderr:\n{err[-6000:]}"
+        raise AssertionError(f"the {name} side timed out (its limit counts "
+                             f"from its start):\n{out[-3000:]}\n"
+                             f"{err[-6000:]}")
+    assert proc.returncode == 0, (
+        f"the {name} side exited {proc.returncode}:\nstdout:\n"
+        f"{out[-3000:]}\nstderr:\n{err[-6000:]}")
     return out
 
 
@@ -231,9 +277,12 @@ def runs(gloo, tmp_path_factory):
     port's train cell reads its weights), then the two 8-rank spawns and
     the dry-run side by side."""
     tmp = tmp_path_factory.mktemp("mesh")
-    _wait(_run([sys.executable, "-c",
-                _REF % {"N": N, "DRY": DRY_ARCHS}, str(tmp)], 300))
-    jobs = [_run([sys.executable, __file__, case, str(tmp)], 300,
+    _wait(_run("reference", [sys.executable, "-c",
+                             _REF % {"N": N, "DRY": DRY_ARCHS,
+                                     "MOE": MOE_ARCHS}, str(tmp)],
+               JOB_TIMEOUT))
+    jobs = [_run(case, [sys.executable, __file__, case, str(tmp)],
+                 JOB_TIMEOUT,
                  {"REPRO_TORCH_TUNE_CACHE": str(tmp / f"tc_{case}")})
             for case in ("dm", "pd", "dry")]
     for job in jobs:
@@ -265,7 +314,7 @@ def _case_dm(rank, tmp, out):
     from repro_torch.launch.steps import build_cell
     import torch.distributed as dist
     from repro_torch.distributed.sharding import (batch_specs, is_dtensor,
-                                                  place)
+                                                  local_shard, place)
     from repro_torch.launch import steps
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import Transformer, params_from_numpy
@@ -385,7 +434,7 @@ def _case_dm(rank, tmp, out):
     # a card), the update's pieces run with plain copies for the streams
     from torch.distributed.tensor import Shard
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.distributed.sharding import PinnedShard, local_shard
+    from repro_torch.distributed.sharding import PinnedShard
     from repro_torch.optim.offload import _sharded_state
     from repro_torch.tree import tree_map
 
@@ -587,6 +636,52 @@ def _case_dm(rank, tmp, out):
         "equal": all(np.array_equal(got[k].full_tensor().numpy(), want[k])
                      for k in want),
         "local_rows": [int(got[k].to_local().shape[0]) for k in sorted(got)]}
+
+    # -- the MoE layer on the mesh (no moe_ep): its dispatch buffer split by
+    # experts over "model", the expert weights at their own placements ------
+    out["moe"] = {}
+    for name in MOE_ARCHS:
+        c = reduced(get_config(name))
+        model = Transformer(c)
+        ref = np.load(os.path.join(tmp, f"ref_moe_{name}.npz"))
+        mtree = {}
+        for key in ref.files:
+            if not key.startswith("params/"):
+                continue
+            node = mtree
+            *path, leaf = key.split("/")[1:]
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = ref[key]
+        b = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(
+            tmp, f"ref_moe_{name}_batch.npz")).items()}
+        dp, rules = placed(model, params_from_numpy(mtree, "cpu"))
+        db = place(b, batch_specs(rules, c, "train", b))
+        loss, met, g = value_and_grad(model, dp, db,
+                                      policy=MeshPolicy(rules, c))
+        lu, mu, gu = value_and_grad(model, params_from_numpy(mtree, "cpu"), b)
+        n_model = mesh.size(mesh.mesh_dim_names.index("model"))
+        local = [list(local_shard(t).shape) for k, t in
+                 flatten_with_paths({"params": dp, "grads": g})
+                 if "/experts/" in k]
+        every = [None] * 8
+        dist.all_gather_object(every, local)
+        E = c.n_experts
+        out["moe"][name] = {
+            "loss": float(loss.full_tensor()), "unsharded": float(lu),
+            "aux": float(met["aux"].full_tensor()),
+            "aux_unsharded": float(mu["aux"]),
+            # every rank holds E / n_model experts of each expert leaf (the
+            # layers dim first, then the experts)
+            "experts_split": all(sh[1] == E // n_model for r in every
+                                 for sh in r) and len(every[0]) == 6}
+        for tag, tree in (("sharded", g), ("plain", gu)):
+            # every rank gathers (a collective), rank 0 writes
+            got = {k: (v.full_tensor() if is_dtensor(v) else v)
+                   .detach().numpy() for k, v in flatten_with_paths(tree)}
+            if rank == 0:
+                np.savez(os.path.join(tmp, f"port_moe_{name}_{tag}.npz"),
+                         **got)
 
     # -- expert-parallel MoE ---------------------------------------------------
     c = dataclasses.replace(reduced(get_config("qwen3-moe-30b-a3b")),
@@ -898,6 +993,44 @@ def test_decode_on_the_mesh_matches_unsharded(runs, name):
     assert runs["dm"]["decode"][name] <= 1e-5
 
 
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_sharded_moe_matches_unsharded_and_reference(runs, name):
+    """The MoE layer without ``moe_ep`` on (2, 4), from the reference's
+    weights (arctic-480b with its dense residual branch): its dispatch
+    buffer split by experts over "model" and the expert weights at their
+    own placements, the routing on the gathered tokens.  The loss and the
+    router's aux within the train cell's bounds of the port's unsharded
+    values (1e-4 relative) and of the reference's sharded ones (5e-3);
+    every gradient leaf within ``OPT_TOL`` of the unsharded and of the
+    reference's sharded gradients, normwise."""
+    r, ref = runs["dm"]["moe"][name], runs["ref"]["moe"][name]
+    for got, plain, want in ((r["loss"], r["unsharded"], ref["loss"]),
+                             (r["aux"], r["aux_unsharded"], ref["aux"])):
+        assert abs(got - plain) <= 1e-4 * abs(plain), (got, plain)
+        assert abs(got - want) < 5e-3, (got, want)
+    d = runs["dir"]
+    got = np.load(d / f"port_moe_{name}_sharded.npz")
+    ref_g = np.load(d / f"ref_moe_{name}.npz")
+    ref_g = {k[len("grads/"):]: ref_g[k] for k in ref_g.files
+             if k.startswith("grads/")}
+    for other, want in (("plain", np.load(
+            d / f"port_moe_{name}_plain.npz")), ("ref", ref_g)):
+        keys = sorted(want.files if other == "plain" else want)
+        assert sorted(got.files) == keys
+        errs = {k: _normwise(got[k], want[k]) for k in keys}
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= OPT_TOL[other], (other, worst, errs[worst])
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_sharded_moe_keeps_expert_weights_split(runs, name):
+    """No rank holds a whole expert-weight leaf: on every rank each of
+    ``w_gate``, ``w_up``, ``w_down`` and its gradient holds
+    ``n_experts / 4`` experts (the reference's ``moe_buf`` /
+    ``moe_hidden`` placement; the old path gathered them whole)."""
+    assert runs["dm"]["moe"][name]["experts_split"]
+
+
 def test_ep_moe_matches_dense_moe(runs):
     r = runs["dm"]["ep"]
     assert abs(r["loss"] - r["dense"]) < 5e-3
@@ -950,22 +1083,30 @@ def test_elastic_remesh_checkpoint_restore(runs):
 @pytest.mark.parametrize("kind", ["train", "decode"])
 @pytest.mark.parametrize("arch", DRY_ARCHS)
 def test_small_dryrun_records_and_drops(runs, arch, kind):
+    """Each check names its field and both values when it fails."""
     rec = runs["dry"]["records"][f"{arch}/{kind}"]
-    assert rec["status"] == "OK" and rec["compile_s"] is None
-    assert rec["dropped_shardings"] == runs["ref"]["dropped"][
-        f"{arch}/{kind}"]
-    assert rec["memory"]["param_bytes"] > 0 and rec["flops_per_device"] > 0
-    assert f"{arch}__{'t' if kind == 'train' else 'd'}__2x4__baseline.json" \
-        in runs["dry"]["written"]
+    assert rec["status"] == "OK", ("status", rec["status"])
+    assert rec["compile_s"] is None, ("compile_s", rec["compile_s"])
+    want = runs["ref"]["dropped"][f"{arch}/{kind}"]
+    assert rec["dropped_shardings"] == want, (
+        "dropped_shardings", rec["dropped_shardings"], want)
+    assert rec["memory"]["param_bytes"] > 0, ("param_bytes", rec["memory"])
+    assert rec["flops_per_device"] > 0, ("flops_per_device",
+                                         rec["flops_per_device"])
+    name = f"{arch}__{'t' if kind == 'train' else 'd'}__2x4__baseline.json"
+    assert name in runs["dry"]["written"], ("written", name,
+                                            runs["dry"]["written"])
 
 
 def test_dryrun_cell_on_the_production_mesh(runs):
     """``--mesh single`` builds ``make_production_mesh``'s 16×16
-    ``DeviceMesh`` over a fake group of 256 ranks, and its cell traces."""
+    ``DeviceMesh`` over a fake group of 256 ranks, and its cell traces.
+    Each check names its field when it fails."""
     r = runs["dry"]["production"]
-    assert r["status"] == "OK" and r["n_devices"] == 256
-    assert r["mesh"] == "DeviceMesh" and r["shape"] == [16, 16]
-    assert r["axes"] == ["data", "model"]
+    for field, want in (("status", "OK"), ("n_devices", 256),
+                        ("mesh", "DeviceMesh"), ("shape", [16, 16]),
+                        ("axes", ["data", "model"])):
+        assert r[field] == want, (field, r[field], want)
 
 
 def test_dryrun_cli_help_runs():
