@@ -136,7 +136,15 @@ Drives the port's main path through its public entry points and checks it:
    the plain attention; (d) rwkv6-3b and recurrentgemma-2b fp32 forwards
    at full width cut to 4 layers on the mesh, each kernel on its rank's
    shard under ``local_map``: hidden within 1e-4 of the unmeshed port's
-   with kernels, one launch per layer of each kernel's kind; (e)
+   with kernels, one launch per layer of each kernel's kind; then one
+   fp32 train step of each at full width, 2 layers (recurrentgemma-2b:
+   3, one (R, R, A) period), B = 1, S = 512, with a policy (each param
+   placed where it meets its activation), against the unmeshed step:
+   loss within 1e-5 relative, every gradient leaf within 1e-4 normwise,
+   through the plain scans (no kernel launch); and ``rms_norm`` and the
+   cross-entropy on a last dim split over the one-rank "model" axis,
+   their sums as NCCL all-reduces, against the plain functions within
+   1e-5; (e)
    offload_mesh: ``build_cell(qwen2.5-14b, train, mesh=1×1,
    use_pallas=True)`` at full width, bf16, 2 of 48 layers, B = 1,
    S = 4096, two Adafactor steps with the state on the card and two with
@@ -238,6 +246,15 @@ MESH_GRAD_TOL = 1e-4
 MESH_HIDDEN_TOL = 1e-4
 MESH_FORWARD_LAYERS = 4
 MESH_FORWARD = ("rwkv6-3b", "recurrentgemma-2b")
+# mesh (d): then one fp32 train step of each of MESH_FORWARD at these
+# depths (griffin's 3: one whole (R, R, A) period; at 2 its period stack
+# would be empty) and this sequence (B = 1), meshed against unmeshed,
+# within MESH_LOSS_RTOL and MESH_GRAD_TOL; and the norm's and the
+# cross-entropy's sums over a split dim as NCCL all-reduces, against the
+# plain ones within MESH_SUM_TOL
+MESH_TRAIN_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
+MESH_TRAIN_SEQ = 512
+MESH_SUM_TOL = 1e-5
 MESH_TIMED_STEPS = 3        # (c) timed, after one warm step, per run
 MESH_MOE = "qwen3-moe-30b-a3b"   # (f) the MoE layer on the mesh
 MESH_MOE_LAYERS = 2
@@ -2519,6 +2536,120 @@ def _mesh_forward(mesh, name: str, smi: str) -> dict:
     return counts
 
 
+def _mesh_train_recurrent(mesh, name: str, smi: str) -> dict:
+    """mesh (d): the gradient of one fp32 train step of ``name`` at full
+    width, MESH_TRAIN_LAYERS[name] deep, B = 1, S = MESH_TRAIN_SEQ, on the
+    1×1 mesh with a policy (each param placed where it meets its activation,
+    the norms and the cross-entropy on the rank's shards under
+    ``local_map``) against the unmeshed step: the loss within
+    MESH_LOSS_RTOL, every gradient leaf within MESH_GRAD_TOL normwise.
+    The step trains through the plain scans, as both packages do (wkv6
+    and rglru_scan have no backward), so it launches no kernel.  Then
+    ``_mesh_sums``.  Returns the meshed step's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import (MeshPolicy, batch_specs,
+                                                  place)
+    from repro_torch.launch import steps
+    from repro_torch.models import Transformer
+    from repro_torch.tree import leaves
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=MESH_TRAIN_LAYERS[name],
+                              dtype="float32")
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = Transformer(cfg)
+    params = model.init(gen)
+    _perturb_constants(params, gen)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        cfg, 1, MESH_TRAIN_SEQ, seed=0).batch_at(0).items()}
+    before = _launch_counts()
+    loss_u, _, g = steps.value_and_grad(model, _clone_tree(params), batch)
+    plain = leaves(g)
+    dp, rules = _mesh_params(model, params, mesh, "train")
+    dbatch = place(batch, batch_specs(rules, cfg, "train", batch))
+    del params, g
+    _set_launch_counts(dict.fromkeys(_counters(), 0))     # the run starts
+    loss_m, _, g = steps.value_and_grad(model, dp, dbatch,
+                                        policy=MeshPolicy(rules, cfg))
+    counts = _launch_counts()                             # ... and ends
+    _set_launch_counts(before)
+    loss_m, loss_u = float(loss_m.full_tensor()), float(loss_u)
+    rel = abs(loss_m - loss_u) / abs(loss_u)
+    errs = [float((a.full_tensor() - b).norm() / b.norm())
+            for a, b in zip(leaves(g), plain)]
+    check(not any(counts.values()), f"mesh (d) {name} train: launches "
+          f"{counts}, want none (the plain scans train)")
+    check(math.isfinite(loss_m) and rel <= MESH_LOSS_RTOL,
+          f"mesh (d) {name} train: meshed loss {loss_m} vs unmeshed "
+          f"{loss_u}: rel err {rel} > {MESH_LOSS_RTOL}")
+    check(all(math.isfinite(e) and e <= MESH_GRAD_TOL for e in errs),
+          f"mesh (d) {name} train: gradient leaves meshed vs unmeshed: "
+          f"normwise errs up to {max(errs)} > {MESH_GRAD_TOL}")
+    del dp, dbatch, g, plain
+    torch.cuda.empty_cache()
+    sums = _mesh_sums(mesh, cfg)
+    report("mesh", run="train_fp32_recurrent_meshed_vs_unmeshed",
+           model=name, n_layers=cfg.n_layers, batch=1,
+           seq=MESH_TRAIN_SEQ, loss_meshed=loss_m, loss_unmeshed=loss_u,
+           loss_rel_err=rel, loss_tol=MESH_LOSS_RTOL, grad_leaves=len(errs),
+           grad_rel_err_max=max(errs), grad_tol=MESH_GRAD_TOL,
+           split_sums=sums, sum_tol=MESH_SUM_TOL, launches=counts,
+           seconds=time.perf_counter() - t, card=smi)
+    return counts
+
+
+def _mesh_sums(mesh, cfg) -> dict:
+    """``rms_norm`` and the cross-entropy on DTensors whose last dim is
+    split over the one-rank "model" axis (``Shard`` on an axis of one:
+    the model path never places one so), so their sums over that dim run
+    through ``sharding.psum`` / ``pmax`` as NCCL all-reduces, forward
+    and backward: outputs and input gradients against the plain
+    functions, normwise, within MESH_SUM_TOL."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.layers import cross_entropy, rms_norm
+    from repro_torch.models.transformer import _cross_entropy
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    split = (Replicate(), Shard(2))
+    out = {}
+    for what, shape in (("rms_norm", (1, 256, cfg.d_model)),
+                        ("cross_entropy", (1, 256, cfg.vocab))):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = 1.0 + 0.1 * torch.randn(shape[-1:], generator=gen, device="cuda")
+        labels = torch.randint(0, shape[-1], shape[:2], generator=gen,
+                               device="cuda", dtype=torch.int32)
+        xs = x.clone().requires_grad_(True)
+        xp = x.clone().requires_grad_(True)
+        ds = DTensor.from_local(xs, mesh, split, run_check=False)
+        if what == "rms_norm":
+            got = rms_norm(ds, DTensor.from_local(w, mesh, (Replicate(),
+                                                            Replicate())))
+            got = got.to_local()
+            want = rms_norm(xp, w)
+            (gs,), (gp,) = (torch.autograd.grad((y * y).sum(), v)
+                            for y, v in ((got, xs), (want, xp)))
+        else:
+            got = _cross_entropy(ds, labels).full_tensor()
+            want = cross_entropy(xp, labels)
+            (gs,), (gp,) = (torch.autograd.grad(y, v)
+                            for y, v in ((got, xs), (want, xp)))
+        errs = [float((a - b).norm() / b.norm())
+                for a, b in ((got.detach(), want.detach()), (gs, gp))]
+        check(all(math.isfinite(e) and e <= MESH_SUM_TOL for e in errs),
+              f"mesh (d): {what} split over a one-rank axis vs plain: "
+              f"normwise errs (output, gradient) {errs} > {MESH_SUM_TOL}")
+        out[what] = errs
+    return out
+
+
 def _mesh_offload(mesh, smi: str) -> dict:
     """offload_mesh (module docstring, 11 (e)): qwen2.5-14b's train cell
     on the mesh at full width, bf16, TRAIN_CUT_LAYERS deep,
@@ -2735,6 +2866,8 @@ def phase_mesh(smi: str) -> dict:
         _mesh_3mm(mesh, smi)
         parts = [_mesh_attn_step(mesh, smi), _mesh_train(mesh, smi)]
         parts += [_mesh_forward(mesh, name, smi) for name in MESH_FORWARD]
+        parts += [_mesh_train_recurrent(mesh, name, smi)
+                  for name in MESH_FORWARD]
         parts.append(_mesh_offload(mesh, smi))
         parts.append(_mesh_moe(mesh, smi))
         for part in parts:

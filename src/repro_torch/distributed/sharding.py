@@ -38,7 +38,8 @@ __all__ = ["AbstractMesh", "abstract_mesh", "mesh_shape", "NamedSharding",
            "ShardingRules", "PARAM_RULES", "make_rules", "spec_for_axes",
            "tree_shardings", "MeshPolicy", "batch_axes", "batch_specs",
            "cache_shardings", "placements", "distribute", "from_global",
-           "like", "replicate", "moved", "reduced", "split_dim", "merge_dims",
+           "like", "replicate", "at_use", "whole", "placed_as", "psum",
+           "pmax", "moved", "reduced", "split_dim", "merge_dims",
            "is_dtensor", "assign",
            "local_apply"]
 
@@ -554,6 +555,111 @@ def replicate(t, x):
     from torch.distributed.tensor import Replicate
     return from_global(t, x.device_mesh,
                        (Replicate(),) * x.device_mesh.ndim)
+
+
+def at_use(t, x, dims):
+    """``t`` (a param, or a plain constant) placed where it meets the
+    activation ``x``, so that the op between them runs on each rank's
+    shards: on each mesh axis over which ``x`` splits a dim that ``dims``
+    pairs with a dim of ``t`` (``{x dim: t dim}``), ``t`` is split the
+    same way (a slice of what the rank holds: no collective); on an axis
+    over which ``x`` is whole, ``t`` keeps its own split of a dim that
+    ``dims`` pairs with none (a weight's output dim: ``x @ t`` comes out
+    split there); on every other axis ``t`` is whole (the FSDP gather
+    over "data", of the weight and not of the activation).  A
+    contraction whose dim ``x`` splits then leaves partial sums of the
+    (small) result, reduced where it is next used.  A plain ``t`` (the
+    same value on every rank) is placed so; ``t`` itself if ``x`` is
+    plain."""
+    if not is_dtensor(x):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    own = t.placements if is_dtensor(t) else (Replicate(),) * len(
+        x.placements)
+    paired = set(dims.values())
+    want = []
+    for p, q in zip(x.placements, own):
+        if isinstance(p, Shard) and p.dim in dims:
+            want.append(Shard(dims[p.dim]))
+        elif isinstance(p, Replicate) and isinstance(q, Shard) \
+                and q.dim not in paired:
+            want.append(q)
+        else:
+            want.append(Replicate())
+    want = tuple(want)
+    if not is_dtensor(t):
+        return from_global(t, x.device_mesh, want)
+    return t if tuple(t.placements) == want else t.redistribute(
+        placements=want)
+
+
+def whole(x, dim: int):
+    """``x`` with dim ``dim`` gathered over every mesh axis that splits
+    it (its other splits kept): the activation a projection contracts,
+    gathered once for every weight that reads it."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim = dim % x.ndim
+    want = tuple(Replicate() if p == Shard(dim) else p
+                 for p in x.placements)
+    return x if tuple(x.placements) == want else x.redistribute(
+        placements=want)
+
+
+def placed_as(y, x):
+    """``y`` redistributed to the placements of ``x`` (of the same
+    shape): partial sums reduced straight to ``x``'s split (a
+    reduce-scatter); ``y`` itself if either is plain."""
+    if not (is_dtensor(y) and is_dtensor(x)) \
+            or tuple(y.placements) == tuple(x.placements):
+        return y
+    return y.redistribute(placements=x.placements)
+
+
+def _all_reduce(t, groups, op: str = "sum"):
+    for g in groups:
+        t = torch.ops._c10d_functional.wait_tensor(
+            torch.ops._c10d_functional.all_reduce(t.contiguous(), op, g))
+    return t
+
+
+class _Psum(torch.autograd.Function):
+    """The sum over process groups.  Its gradient is the same sum of the
+    gradients where each rank's copy of the sum feeds that rank's own
+    outputs, and the gradient as it is where every rank's outputs are
+    the same (replicated) values."""
+
+    @staticmethod
+    def forward(ctx, t, groups, replicated):
+        ctx.groups, ctx.replicated = groups, replicated
+        return _all_reduce(t, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.replicated else _all_reduce(g, ctx.groups),
+                None, None)
+
+
+def _groups(mesh, dims) -> tuple:
+    return tuple(mesh.get_group(i).group_name for i in dims)
+
+
+def psum(t, mesh, dims, *, replicated: bool = False):
+    """The sum of the plain local tensor ``t`` over the mesh dims ``dims``
+    (inside ``local_apply``: one all-reduce a dim), differentiable.  By
+    default each rank's copy of the sum feeds that rank's own shard of
+    the outputs, and the backward sums the gradient over the same ranks;
+    ``replicated``: the outputs are replicated over ``dims`` (each rank
+    holds the same values), and the gradient passes as it is."""
+    groups = _groups(mesh, dims)
+    return _Psum.apply(t, groups, replicated) if groups else t
+
+
+def pmax(t, mesh, dims):
+    """The maximum of the plain local tensor ``t`` over the mesh dims
+    ``dims`` (not differentiable: a stabilizing shift)."""
+    return _all_reduce(t.detach(), _groups(mesh, dims), "max")
 
 
 def moved(plc, mapping):

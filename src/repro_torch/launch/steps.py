@@ -31,7 +31,7 @@ from torch.distributed.tensor import DTensor
 from ..distributed.sharding import (MeshPolicy, batch_specs,
                                     cache_shardings, is_dtensor, make_rules,
                                     mesh_shape, place, place_leaf,
-                                    tree_shardings)
+                                    placed_as, tree_shardings)
 from ..models import Transformer
 from ..optim import (default_optimizer, offload_shardings,
                      offloaded_optimizer, opt_state_shardings)
@@ -158,7 +158,11 @@ def value_and_grad(model: Transformer, params, batch, grad_accum: int = 1,
     for mb in mbs:
         loss, _ = model.loss(params, mb, policy)
         for a, g in zip(acc, torch.autograd.grad(loss, flat)):
-            a.add_(g.float())
+            # each micro-batch's gradient at its param's placement (the
+            # models place each param at its point of use, so most
+            # arrive there; partial sums over "data" are reduced here,
+            # in the gradient's own type), then summed in fp32
+            a.add_(placed_as(g, a).float())
         total = total + loss.detach()
     loss = total / grad_accum
     grads = [a.div_(grad_accum) for a in acc]

@@ -73,13 +73,38 @@ def acts(policy, x, kind: str):
 # ---------------------------------------------------------------------------
 
 def rms_norm(x, weight, eps: float = 1e-6):
+    """x·rsqrt(mean x² + eps)·weight over the last dim.  On a mesh each
+    rank normalizes its own shard: ``weight`` meets x at x's split of the
+    last dim (``at_use``), and where that dim is split the sums of
+    squares are summed over the ranks that split it (an all-reduce of
+    (..., 1) per row, forward and backward)."""
+    from ..distributed.sharding import at_use, is_dtensor, local_apply, psum
+    if not is_dtensor(x):
+        return _rms_norm(x, weight, eps)
+    from torch.distributed.tensor import Shard
+    last = x.ndim - 1
+    split = [i for i, p in enumerate(x.placements) if p == Shard(last)]
+    mesh, n = x.device_mesh, x.shape[-1]
+
+    def body(x, w):
+        if not split:
+            return _rms_norm(x, w, eps)
+        return _rms_norm(x, w, eps, lambda t: psum(t, mesh, split) / n)
+    return local_apply(body, "like", x, at_use(weight, x, {last: 0}))
+
+
+def _rms_norm(x, weight, eps, mean=None):
+    """The norm of whole rows; ``mean`` (given the per-row sums of
+    squares, (..., 1)) takes the mean over a split row."""
     if x.dtype == torch.float32:
-        var = torch.mean(x * x, dim=-1, keepdim=True)
+        var = (torch.mean(x * x, dim=-1, keepdim=True) if mean is None
+               else mean((x * x).sum(dim=-1, keepdim=True)))
         return x * torch.rsqrt(var + eps) * weight
     # low-precision path: the sum of squares accumulates in fp32 and inv
     # is cast to x's type BEFORE the multiply, as the reference does
     x32 = x.float()
-    var = (x32 * x32).sum(dim=-1) / x.shape[-1]
+    var = ((x32 * x32).sum(dim=-1) / x.shape[-1] if mean is None
+           else mean((x32 * x32).sum(dim=-1, keepdim=True))[..., 0])
     inv = torch.rsqrt(var + eps)
     return (x * inv[..., None].to(x.dtype)) * weight
 
@@ -131,6 +156,10 @@ def ffn_spec(d_model: int, d_ff: int, activation: str,
 
 
 def ffn_apply(params, x, activation: str, policy=None):
+    """On a mesh x's d is gathered once for both input projections
+    (``whole``), which come out split by d_ff as their weights are."""
+    from ..distributed.sharding import whole
+    x = whole(x, -1)
     w_up = acts(policy, params["w_up"], "w_ffn_in")
     w_down = acts(policy, params["w_down"], "w_ffn_out")
     if activation in ("swiglu", "geglu"):

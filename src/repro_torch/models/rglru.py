@@ -19,7 +19,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import assign, is_dtensor, like, local_apply
+from ..distributed.sharding import (assign, at_use, is_dtensor, like,
+                                    local_apply, placed_as, whole)
 from ..kernels import ops as kops
 from ..kernels.ref import rglru_scan_ref
 from .layers import P, acts, gelu
@@ -46,12 +47,20 @@ def rglru_spec(cfg, prefix_shape=(), prefix_names=()) -> Dict[str, Any]:
     }
 
 
+def _proj(x, w):
+    """x (B, T, d) @ w (d, d).  On a mesh x has its d whole (``whole``,
+    gathered once for the block's four projections) and w meets it
+    gathered over "data" only, so the product comes out split by the
+    rnn channels as w is."""
+    return x @ at_use(w, x, {x.ndim - 1: 0})
+
+
 def _gates(params, u, x):
     """u: conv output (..., d) drives the recurrence input; x: raw block
     input drives the gates (a_t, i_t)."""
     a = torch.exp(-RGLRU_C * F.softplus(params["lam"]).float()
-                  * torch.sigmoid(x @ params["w_a"]).float())
-    i = torch.sigmoid(x @ params["w_i"]).float()
+                  * torch.sigmoid(_proj(x, params["w_a"])).float())
+    i = torch.sigmoid(_proj(x, params["w_i"])).float()
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.float())
     return a, b
 
@@ -66,27 +75,31 @@ def _conv1d(params, x, width: int, state=None):
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
-    out = sum(xp[:, i:i + x.shape[1]] * params["conv_w"][i]
-              for i in range(width))
-    return out + params["conv_b"], xp[:, -(width - 1):]
+    conv_w = at_use(params["conv_w"], x, {2: 1})
+    out = sum(xp[:, i:i + x.shape[1]] * conv_w[i] for i in range(width))
+    return out + at_use(params["conv_b"], x, {2: 0}), xp[:, -(width - 1):]
 
 
 def rglru_apply(params, x, cfg, *, policy=None, use_pallas: bool = False):
     """Training/prefill.  x: (B, T, d).  Returns (out (B, T, d), (h, conv)):
     the last step's fp32 hidden state and the conv window, the layer's
     decode cache after the prompt.  On a mesh the scan runs on each
-    rank's own rows and channels (``local_apply``)."""
-    u = x @ params["w_x"]
+    rank's own rows and channels (``local_apply``): the projections into
+    the rnn channels gather x's d once, the conv keeps the sequence
+    whole, and the output projection's partial sums are reduced straight
+    to x's split."""
+    xw = whole(x, 2)
+    u = _proj(xw, params["w_x"])
     u, conv_state = _conv1d(params, u, cfg.rglru_conv_width)
-    a, b = _gates(params, u, x)
+    a, b = _gates(params, u, xw)
     if is_dtensor(a):
         b = b.redistribute(placements=a.placements)
     h = local_apply(kops.rglru_scan if use_pallas else rglru_scan_ref,
                     "like", a, b)
     state = (h[:, -1].float(), conv_state)
-    gate = gelu(x @ params["w_gate"])
-    hx = acts(policy, h.to(x.dtype), "rnn_hidden")
-    return (gate * hx) @ params["w_out"], state
+    gate = gelu(_proj(xw, params["w_gate"]))
+    y = gate * acts(policy, h.to(x.dtype), "rnn_hidden")
+    return placed_as(y @ at_use(params["w_out"], y, {2: 0}), x), state
 
 
 def init_rglru_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,
@@ -103,13 +116,15 @@ def init_rglru_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,
 def rglru_decode(params, x, cfg, cache, *, policy=None):
     """One step.  x: (B, 1, d); cache: dict(h (B, d) fp32, conv (B, w-1,
     d)) of THIS layer, written in place.  Returns (out, cache)."""
-    u = x @ params["w_x"]
+    xw = whole(x, 2)
+    u = _proj(xw, params["w_x"])
     u, conv_state = _conv1d(params, u, cfg.rglru_conv_width,
                             state=cache["conv"])
-    a, b = _gates(params, u, x)
+    a, b = _gates(params, u, xw)
     h = a[:, 0] * cache["h"] + b[:, 0]                 # (B, d) fp32
-    gate = gelu(x @ params["w_gate"])
-    out = (gate * h[:, None].to(x.dtype)) @ params["w_out"]
+    gate = gelu(_proj(xw, params["w_gate"]))
+    y = gate * h[:, None].to(x.dtype)
+    out = placed_as(y @ at_use(params["w_out"], y, {2: 0}), x)
     assign(cache["h"], h)
     assign(cache["conv"], conv_state)
     return out, cache

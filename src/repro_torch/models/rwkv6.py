@@ -19,8 +19,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import (is_dtensor, like, local_apply,
-                                    merge_dims, moved, replicate, split_dim)
+from ..distributed.sharding import (at_use, is_dtensor, local_apply,
+                                    merge_dims, moved, placed_as, replicate,
+                                    split_dim, whole)
 from ..kernels import ops as kops
 from .layers import P, acts, rms_norm
 
@@ -59,9 +60,26 @@ def rwkv6_spec(cfg, prefix_shape=(), prefix_names=()) -> Dict[str, Any]:
 
 
 def _token_shift(x, x_prev):
-    """x: (B, T, d); x_prev: (B, d) last token of the previous segment.
-    Returns the previous-token tensor aligned with x."""
-    return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
+    """x: (B, T, d); x_prev: (B, d) last token of the previous segment
+    (zeros if None).  Returns the previous-token tensor aligned with x.
+    On a mesh the sequence is whole (gathered first if x splits it) and
+    the shift runs on each rank's rows and channels: x_prev takes x's
+    split of them."""
+    if x_prev is None:
+        x_prev = torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype,
+                             device=x.device)
+    xw = whole(x, 1)
+    sx = local_apply(lambda x, xp: torch.cat([xp[:, None], x[:, :-1]],
+                                             dim=1), "like", xw,
+                     at_use(x_prev, xw, {0: 0, 2: 1}))
+    return placed_as(sx, x)
+
+
+def _use(p, x):
+    """The (d,) or (d, n) / (n, d) params of a layer where they meet x
+    (B, T, d): each split as x splits d (``at_use``)."""
+    return {k: at_use(v, x, {2: v.ndim - 1 if k.startswith("lora_b")
+                             else 0}) for k, v in p.items()}
 
 
 def _ddlerp(p, x, sx, z: str):
@@ -97,26 +115,34 @@ def wkv6_scan_ref(r, k, v, w, u):
 def rwkv6_time_mix(p, x, cfg, *, x_prev=None, state=None, policy=None,
                    use_pallas: bool = False):
     """x: (B, T, d).  Returns (out, (new_x_prev, new_state)).  On a mesh
-    the recurrence runs on each rank's own rows and heads
-    (``local_apply``): u and the state take r's sharding of its heads."""
+    each param meets x at x's split of d (``at_use``: gathered over
+    "data" only), as GSPMD places them for the reference: the low-rank
+    mixes reduce their (B, T, 32) partial sums, each projection gathers
+    its input's d over "model" and comes out split by heads, the
+    recurrence runs on each rank's own rows and heads (``local_apply``:
+    u and the state take r's sharding of its heads), and the output
+    projection's partial sums are reduced straight to x's split."""
     B, T, d = x.shape
     hs = cfg.rwkv_head_size
     H = d // hs
-    if x_prev is None:
-        x_prev = like(torch.zeros((B, d), dtype=x.dtype, device=x.device), x)
     sx = _token_shift(x, x_prev)
+    pu = _use({k: v for k, v in p.items()
+               if k.startswith(("mu_", "lora_")) or k in ("w0", "ln_x")}, x)
 
-    xw = _ddlerp(p, x, sx, "w")
-    xk = _ddlerp(p, x, sx, "k")
-    xv = _ddlerp(p, x, sx, "v")
-    xr = _ddlerp(p, x, sx, "r")
-    xg = _ddlerp(p, x, sx, "g")
+    xw = _ddlerp(pu, x, sx, "w")
+    xk = _ddlerp(pu, x, sx, "k")
+    xv = _ddlerp(pu, x, sx, "v")
+    xr = _ddlerp(pu, x, sx, "r")
+    xg = _ddlerp(pu, x, sx, "g")
 
-    r = split_dim(xr @ p["w_r"], 2, (H, hs))
-    k = split_dim(xk @ p["w_k"], 2, (H, hs))
-    v = split_dim(xv @ p["w_v"], 2, (H, hs))
-    g = F.silu(xg @ p["w_g"])
-    dec = p["w0"] + torch.tanh(xw @ p["lora_a_w"]) @ p["lora_b_w"]
+    def proj(xz, name):
+        xz = whole(xz, 2)
+        return xz @ at_use(p[name], xz, {2: 0})
+    r = split_dim(proj(xr, "w_r"), 2, (H, hs))
+    k = split_dim(proj(xk, "w_k"), 2, (H, hs))
+    v = split_dim(proj(xv, "w_v"), 2, (H, hs))
+    g = F.silu(proj(xg, "w_g"))
+    dec = pu["w0"] + torch.tanh(xw @ pu["lora_a_w"]) @ pu["lora_b_w"]
     w = split_dim(torch.exp(-torch.exp(dec.float())), 2, (H, hs))
     u = split_dim(p["u"], 0, (H, hs))
 
@@ -139,22 +165,27 @@ def rwkv6_time_mix(p, x, cfg, *, x_prev=None, state=None, policy=None,
 
     o = o.to(x.dtype)
     o = merge_dims(rms_norm(o, replicate(torch.ones(
-        (hs,), dtype=x.dtype, device=x.device), o)), 2, 2) * p["ln_x"]
-    out = acts(policy, (o * g) @ p["w_out"], "embeds")
+        (hs,), dtype=x.dtype, device=x.device), o)), 2, 2) * pu["ln_x"]
+    og = o * g
+    out = og @ at_use(p["w_out"], og, {2: 0})
+    out = acts(policy, placed_as(out, x), "embeds")
     return out, (x[:, -1], new_state)
 
 
 def rwkv6_channel_mix(p, x, cfg, *, x_prev=None):
-    """Squared-ReLU channel mix with simple token-shift lerp."""
-    B, T, d = x.shape
-    if x_prev is None:
-        x_prev = like(torch.zeros((B, d), dtype=x.dtype, device=x.device), x)
+    """Squared-ReLU channel mix with simple token-shift lerp.  On a mesh
+    the weights are gathered over "data" only: the (d → d_ff) product
+    gathers its input's d over "model" and comes out split by d_ff; the
+    two products into d contract a split dim, and their partial sums
+    are reduced straight to x's split."""
     sx = _token_shift(x, x_prev)
     xx = sx - x
-    xk = x + xx * p["mu_k"]
-    xr = x + xx * p["mu_r"]
-    kk = torch.square(F.relu(xk @ p["w_k"]))
-    return torch.sigmoid(xr @ p["w_r"]) * (kk @ p["w_v"]), x[:, -1]
+    xk = whole(x + xx * at_use(p["mu_k"], x, {2: 0}), 2)
+    xr = x + xx * at_use(p["mu_r"], x, {2: 0})
+    kk = torch.square(F.relu(xk @ at_use(p["w_k"], xk, {2: 0})))
+    kv = placed_as(kk @ at_use(p["w_v"], kk, {2: 0}), x)
+    r = placed_as(xr @ at_use(p["w_r"], xr, {2: 0}), x)
+    return torch.sigmoid(r) * kv, x[:, -1]
 
 
 def init_rwkv_cache(cfg, n_layers: int, batch: int, dtype=torch.bfloat16,

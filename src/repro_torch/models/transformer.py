@@ -51,13 +51,15 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..tree import leaves
 from .attention import (attn_apply, attn_decode, attn_spec, init_kv_cache,
                         quantize_kv_cache)
-from ..distributed.sharding import (assign, is_dtensor, like, local_apply,
-                                    moved, split_dim)
+from ..distributed.sharding import (assign, at_use, from_global,
+                                    is_dtensor, like, local_apply, moved,
+                                    pmax, psum, reduced, split_dim, whole)
 from .layers import (P, acts, axes_tree, cross_entropy, ffn_apply, ffn_spec,
                      init_tree, rms_norm)
 from .moe import moe_apply, moe_apply_ep, moe_spec
@@ -251,10 +253,8 @@ def _embedding(tokens, table):
     partial results sum over "model" where they are next used."""
     if not is_dtensor(table):
         return F.embedding(tokens, table)
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
-
-    from ..distributed.sharding import from_global
     mesh = table.device_mesh
     t_plc = tuple(p if p == Shard(0) else Replicate()
                   for p in table.placements)
@@ -287,27 +287,35 @@ def _embedding(tokens, table):
 
 
 def _cross_entropy(logits, labels):
-    """``cross_entropy``; on a mesh the vocab dim may be split: the gold
-    logit is picked by a one-hot over the vocab ids, and every reduction
-    is DTensor's (partial results reduced where needed)."""
+    """``cross_entropy``.  On a mesh each rank takes the rows it holds:
+    partial logits (a head that contracted a split d) are summed first,
+    and where the vocab dim is split the row statistics (the max, the
+    sum of exponentials, the gold logit, picked by a one-hot over the
+    rank's vocab ids) are summed over the ranks that split it, so the
+    loss rows leave replicated over them and the scalar loss is partial
+    over the batch axes alone (one all-reduce)."""
     if not is_dtensor(logits):
         return cross_entropy(logits, labels)
-    from torch.distributed.tensor import Replicate, Shard
+    logits = reduced(logits)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    split = [i for i, p in enumerate(logits.placements) if p == Shard(last)]
+    ids = from_global(torch.arange(logits.shape[-1], device=logits.device),
+                      mesh, tuple(Shard(0) if i in split else Replicate()
+                                  for i in range(mesh.ndim)))
+    rows = tuple(Replicate() if i in split else p
+                 for i, p in enumerate(logits.placements))
 
-    from ..distributed.sharding import from_global
-    V = logits.shape[-1]
-    vocab_ids = from_global(
-        torch.arange(V, device=logits.device), logits.device_mesh,
-        tuple(Shard(0) if p == Shard(logits.ndim - 1) else Replicate()
-              for p in logits.placements))
-    labels = like(labels, logits)
-    m = logits.detach().amax(dim=-1, keepdim=True)
-    logz = (m + torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
-            )[..., 0]
-    onehot = (labels.long()[..., None] == vocab_ids).to(logits.dtype)
-    gold = (logits * onehot).sum(dim=-1)
-    mask = (labels != -1).to(logits.dtype)
-    loss = (logz - gold) * mask
+    def body(lg, lab, ids):
+        m = pmax(lg.amax(dim=-1, keepdim=True), mesh, split)
+        s = psum(torch.exp(lg - m).sum(dim=-1, keepdim=True), mesh, split,
+                 replicated=True)
+        logz = (m + torch.log(s))[..., 0]
+        onehot = (lab.long()[..., None] == ids).to(lg.dtype)
+        gold = psum((lg * onehot).sum(dim=-1), mesh, split, replicated=True)
+        mask = (lab != -1).to(lg.dtype)
+        return (logz - gold) * mask, mask
+    loss, mask = local_apply(body, (list(rows), list(rows)), logits,
+                             like(labels, logits), ids)
     return loss.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
@@ -364,8 +372,14 @@ class Transformer:
 
     def _head(self, params, h):
         """Logits of final-normed states: (..., vocab), or (...,
-        n_codebooks, vocab) for codebook archs."""
-        logits = h @ params["head"]
+        n_codebooks, vocab) for codebook archs.  On a mesh a head split by
+        vocab rows gathers h's d and gives logits split by vocab; any
+        other head contracts h's d where h splits it, and its logits are
+        partial sums (reduced where they are next used)."""
+        head = params["head"]
+        if is_dtensor(head) and any(p == Shard(1) for p in head.placements):
+            h = whole(h, -1)
+        logits = h @ at_use(head, h, {h.ndim - 1: 0})
         if self.cfg.n_codebooks:
             logits = split_dim(logits, -1, (self.cfg.n_codebooks,
                                             self.cfg.vocab))

@@ -28,8 +28,10 @@ Held here, on a (2, 4) ("data", "model") mesh unless said otherwise:
     and optimizer-state leaf after one AdamW and one Adafactor step, leaf
     by leaf against the unsharded step and the reference's sharded one;
   * reduced rwkv6-3b and recurrentgemma-2b: the ``loss`` with a policy
-    within 1e-4 of the unsharded loss, and ``hidden`` with the kernels'
-    plain versions on the shards (``use_pallas``) within 1e-4;
+    within 1e-4 of the unsharded loss, ``hidden`` with the kernels'
+    plain versions on the shards (``use_pallas``) within 1e-4, and the
+    gradients of two accumulated micro-batches synced to their params'
+    placements, leaf by leaf against the unsharded ones;
   * decode of reduced qwen2.5-14b, recurrentgemma-2b and rwkv6-3b with
     the cache sharded (its sequence over "model"), within 1e-5 of the
     unsharded logits;
@@ -590,10 +592,26 @@ def _case_dm(rank, tmp, out):
         kern = Transformer(c, use_pallas=True)
         hd = kern.hidden(dp, db, pol).full_tensor()
         hw = kern.hidden(prm, b)
+        # the gradients of two accumulated micro-batches, synced to their
+        # params' placements, against the unsharded ones, leaf by leaf,
+        # from weights moved off the init (whose zero leaves would leave
+        # the low-rank and conv gradients zero)
+        gen = torch.Generator().manual_seed(2)
+        perturbed = unflatten(prm, [t + 0.02 * torch.randn(
+            t.shape, generator=gen) for t in leaves(prm)])
+        gp, _ = placed(model, perturbed)
+        _, _, g = value_and_grad(model, gp, db, grad_accum=2, policy=pol)
+        gs = synced(leaves(g), leaves(gp))
+        _, _, gu = value_and_grad(model, unflatten(prm, [
+            t.detach().clone() for t in leaves(perturbed)]), b, grad_accum=2)
         out["recurrent"][name] = {
             "loss": got, "unsharded": want,
             "hidden_err": float((hd - hw).abs().max()
-                                / hw.abs().max())}
+                                / hw.abs().max()),
+            "grads_placed": all(tuple(a.placements) == tuple(p.placements)
+                                for a, p in zip(gs, leaves(gp))),
+            "grad_errs": {k: _normwise(a.full_tensor().numpy(), u.numpy())
+                          for (k, u), a in zip(flatten_with_paths(gu), gs)}}
 
     # -- decode on the mesh: the cache sharded, its sequence over "model" ----
     from repro_torch.distributed.sharding import cache_shardings, place
@@ -982,6 +1000,19 @@ def test_recurrent_loss_with_policy_matches_unsharded(runs, name):
     r = runs["dm"]["recurrent"][name]
     assert abs(r["loss"] - r["unsharded"]) <= 1e-4 * abs(r["unsharded"])
     assert r["hidden_err"] <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_recurrent_synced_gradients_match_unsharded(runs, name):
+    """Two accumulated micro-batches of the sharded step with a policy:
+    every gradient, reduced to its param's placement, against the
+    unsharded one, leaf by leaf (as ``test_synced_gradients_match_
+    unsharded`` holds reduced internlm2-20b's).  Each param meets its
+    activation at a placement of its own here (``at_use``), so a
+    gradient left partial, or reduced twice, is off by a factor."""
+    r = runs["dm"]["recurrent"][name]
+    worst = max(r["grad_errs"].items(), key=lambda kv: kv[1])
+    assert r["grads_placed"] and worst[1] <= OPT_TOL["plain"], worst
 
 
 @pytest.mark.parametrize("name", ["qwen2.5-14b", "recurrentgemma-2b",
