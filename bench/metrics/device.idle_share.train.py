@@ -1,0 +1,3 @@
+"""The device's idle share (%) in a train cell's traced span
+(``devicetrace.idle_share``)."""
+from bench.devicetrace import idle_share as read  # noqa: F401
