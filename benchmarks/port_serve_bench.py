@@ -16,7 +16,7 @@ the persistent bucket cache (``REPRO_TORCH_TUNE_CACHE``) with zero online
 measurements.
 
 Invariants checked on every run (``--check`` also gates the speedup):
-all requests finish, none dropped, p99 latency finite, zero KV-slot
+all requests finish, none dropped, p99 delivery finite, zero KV-slot
 leaks, no pooled cache leaf reallocated, and — after warm-up — zero
 online tune measurements.  Runs on ``cuda:0`` (raising without a card)
 unless ``--backend cpu``:
@@ -71,8 +71,8 @@ def check(rep, n_expected: int) -> None:
     if rep["dropped"] or rep["leaked_slots"]:
         raise AssertionError(f"dropped {rep['dropped']}, leaked "
                              f"{rep['leaked_slots']} slots")
-    if not math.isfinite(rep["latency_p99_s"]):
-        raise AssertionError(f"p99 latency {rep['latency_p99_s']}")
+    if not math.isfinite(rep["delivery_p99_s"]):
+        raise AssertionError(f"p99 delivery {rep['delivery_p99_s']}")
     if rep["pool_reallocated"]:
         raise AssertionError("a pooled cache leaf moved during the run")
 
@@ -124,12 +124,12 @@ def bench_runtime(rt, *, n_requests: int, capacity: int, seed: int,
         "speedup_requests_per_s": ratio,
         "warm_tune_measurements": warm_measurements,
         "continuous": {k: cont[k] for k in (
-            "requests_per_s", "tokens_per_s", "latency_p50_s",
-            "latency_p99_s", "ttft_p50_s", "occupancy", "steps",
+            "requests_per_s", "tokens_per_s", "delivery_p50_s",
+            "delivery_p99_s", "occupancy", "steps",
             "fetch_batches", "wall_s")},
         "static": {k: stat[k] for k in (
-            "requests_per_s", "tokens_per_s", "latency_p50_s",
-            "latency_p99_s", "ttft_p50_s", "occupancy", "steps", "wall_s")},
+            "requests_per_s", "tokens_per_s", "delivery_p50_s",
+            "delivery_p99_s", "occupancy", "steps", "wall_s")},
         "tune": cont["tune"],
         "pool": cont["pool"],
         "residency": cont["residency"],

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace import BACKWARD_RANGE
 from . import flash_attention as _fa
 from . import rglru_scan as _rg
 from . import rmsnorm as _rn
@@ -21,9 +22,6 @@ from . import wkv6 as _wkv
 
 __all__ = ["flash_attention", "fold_attention", "rglru_scan", "wkv6",
            "rmsnorm", "BACKWARD_RANGE"]
-
-# the profiler range flash's backward (the blockwise recompute) runs in
-BACKWARD_RANGE = "flash_attention.backward"
 
 
 def fold_attention(q, k, v):

@@ -169,8 +169,8 @@ def main(argv=None):
         print(f"[serve.engine] {rep['n_requests']} requests in "
               f"{rep['wall_s']:.2f}s  {rep['requests_per_s']:.1f} req/s  "
               f"{rep['tokens_per_s']:.0f} tok/s  "
-              f"p50={rep['latency_p50_s']*1e3:.0f}ms "
-              f"p99={rep['latency_p99_s']*1e3:.0f}ms  "
+              f"delivered p50={rep['delivery_p50_s']*1e3:.0f}ms "
+              f"p99={rep['delivery_p99_s']*1e3:.0f}ms  "
               f"occupancy={rep['occupancy']:.2f}")
         print(f"[serve.engine] tune: {rep['tune']['measurements']} measured "
               f"/ {rep['tune']['hits']} cached  pool: {rep['pool']}")

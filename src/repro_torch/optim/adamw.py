@@ -30,13 +30,13 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..distributed.sharding import is_dtensor, local_shard
+from ..trace import UPDATE_RANGE
 from ..tree import leaves, tree_map
 
 __all__ = ["adamw", "Optimizer", "LeafRule", "apply_rule", "synced",
            "local_ctx", "CHUNK", "UPDATE_RANGE"]
 
 CHUNK = 1 << 26          # elements of a leaf updated at a time (256 MB fp32)
-UPDATE_RANGE = "optimizer.update"      # the profiler range of an update
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import Program
 
+from .. import trace
 from ..tree import leaves, tree_map, unflatten
 from ..distributed.sharding import (NamedSharding, PinnedShard, is_dtensor,
                                     local_shard, mesh_device_type,
@@ -225,7 +226,10 @@ def _streamed(rule, grads, state, params, slots, streams) -> None:
     load stream one piece ahead (advancedload), updated on the current
     stream, copied back into its host buffers on the store stream
     (delegatestore).  ``streams`` is (load, store) on a card; ``None`` on
-    the CPU, where the same copies run in order."""
+    the CPU, where the same copies run in order.  Under a profiler the
+    update is one ``offload.update`` span: the bytes it loads and, on a
+    card, ``wait_ns``, how long the compute stream stood stalled on the
+    load stream (timing events around each wait, read lazily)."""
     flat_p = leaves(params)
     device = flat_p[0].device
     flat_g = synced(leaves(grads), flat_p)
@@ -271,18 +275,45 @@ def _streamed(rule, grads, state, params, slots, streams) -> None:
                 t.record_stream(store)
 
     units = list(_pieces(rule, flat_g, slots, flat_p))
-    pending = advancedload(units[0][1]) if units else None
-    for i, (g, slot, p) in enumerate(units):
-        dev, ready = pending
-        if i + 1 < len(units):
-            pending = advancedload(units[i + 1][1])
-        if ready is not None:
-            compute.wait_event(ready)
-            for t in dev.values():
-                t.record_stream(compute)
-        rule.leaf(ctx, g, _as_sharded(dev, slot)
-                  if sharded and not rule.elementwise else dev, p)
-        delegatestore(slot, dev)
+    with trace.span(trace.OFFLOAD_UPDATE) as span:
+        waits = []    # (before, after) the compute stream's wait, a piece
+        pending = advancedload(units[0][1]) if units else None
+        for i, (g, slot, p) in enumerate(units):
+            dev, ready = pending
+            if i + 1 < len(units):
+                pending = advancedload(units[i + 1][1])
+            if span:
+                span.add("h2d_bytes", sum(t.nbytes for t in dev.values()))
+            if ready is not None:
+                if span:
+                    waits.append(_timed_wait(compute, ready))
+                else:
+                    compute.wait_event(ready)
+                for t in dev.values():
+                    t.record_stream(compute)
+            rule.leaf(ctx, g, _as_sharded(dev, slot)
+                      if sharded and not rule.elementwise else dev, p)
+            delegatestore(slot, dev)
+        if waits:
+            span.later("wait_ns", lambda: _stalled_ns(waits))
+
+
+def _timed_wait(compute, ready):
+    """``compute.wait_event(ready)`` between two timing events on
+    ``compute``: the time between them is how long the stream stood."""
+    before = torch.cuda.Event(enable_timing=True)
+    after = torch.cuda.Event(enable_timing=True)
+    before.record(compute)
+    compute.wait_event(ready)
+    after.record(compute)
+    return before, after
+
+
+def _stalled_ns(waits) -> int:
+    """The compute stream's stalls summed, in ns (read once the update
+    has run: it waits for the last of them)."""
+    waits[-1][1].synchronize()
+    return sum(round(a.elapsed_time(b) * 1e6) for a, b in waits)
 
 
 def plan_step_program(n_steps: int = 4) -> Program:

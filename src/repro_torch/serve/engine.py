@@ -41,6 +41,9 @@ shapes.  Each bucket maps onto a persistent ``TuneCache`` entry keyed by
 across ALL processes it is measured once (blocking), and every later run
 looks it up and stays on the asynchronous path with zero measurements.
 
+Under a ``torch.profiler`` the engine records a span (``repro_torch.trace``)
+around each ``ServeRuntime.prefill_request`` and ``.decode`` call.
+
 An MoE layer's expert capacity is shared by every token of a prefill
 bucket (its padding included) and by every row of a decode step (idle
 rows too), so where capacity drops tokens the engine's tokens can rightly
@@ -57,6 +60,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.backend import TorchDeviceBackend, get_backend
 from ..core.residency import DeviceResidency
 from ..core.tunecache import (COST_MODEL_VERSION, _sha, backend_fingerprint,
@@ -334,7 +338,8 @@ class Engine:
         req.to_prefilling(now)
         slot = self.pool.alloc()
         assert slot is not None   # pop_admissible was bounded by free_count
-        logits, cache = self.rt.prefill_request(req)
+        with trace.span(trace.SERVE_PREFILL, rid=req.rid):
+            logits, cache = self.rt.prefill_request(req)
         with self.rt.on_stream(0):
             self.pool.insert(cache, 0, slot)
         self.rt.admit(logits, self._tok, self._pos, self._out, self._gidx,
@@ -353,15 +358,17 @@ class Engine:
         self._parked.append(req)
         self.pool.free(slot)
 
-    def _flush_retired(self) -> None:
+    def _flush_retired(self, t0: float) -> None:
         """delegatestore: ONE download covers every request finished since
-        the last flush."""
+        the last flush; each request's tokens reach the host there
+        (``Request.t_delivered``, counted from the run's start ``t0``)."""
         if not self._parked:
             return
         buf = self.rt.fetch(self._park_buf)
+        now = time.perf_counter() - t0
         self.fetch_batches += 1
         for idx, req in enumerate(self._parked, start=self._n_fetched):
-            req.retire(np.asarray(buf[idx, :req.max_new_tokens]))
+            req.retire(np.asarray(buf[idx, :req.max_new_tokens]), now)
             self.completed.append(req)
         self._n_fetched += len(self._parked)
         self._parked = []
@@ -422,8 +429,9 @@ class Engine:
                     self._finish(slot, now)
 
             if self.batcher.active:
-                rt.decode(self.pool.cache, self._tok, self._pos, self._out,
-                          self._gidx)
+                with trace.span(trace.SERVE_DECODE):
+                    rt.decode(self.pool.cache, self._tok, self._pos,
+                              self._out, self._gidx)
                 done = self.batcher.step()
                 if done:
                     now = time.perf_counter() - t0
@@ -432,7 +440,7 @@ class Engine:
             elif i < len(pending) and not len(self.queue):
                 time.sleep(2e-4)   # idle: next arrival not due yet
 
-        self._flush_retired()   # delegatestore: one download for everything
+        self._flush_retired(t0)   # delegatestore: one download for all
         wall = time.perf_counter() - t0
         self.pool.assert_no_leaks()
         return self._report(wall)
@@ -440,9 +448,8 @@ class Engine:
     def _report(self, wall: float) -> Dict[str, Any]:
         done = self.completed
         assert all(r.state is RequestState.FINISHED for r in done)
-        lat = np.array([r.latency_s for r in done]) if done else np.array([])
-        ttft = np.array([r.t_first_token - r.arrival_s for r in done
-                         if r.t_first_token is not None])
+        # due arrival -> tokens on the host (all at the end of run())
+        deliver = np.array([r.t_delivered - r.arrival_s for r in done])
         gen_tokens = sum(r.max_new_tokens for r in done)
         rt = self.rt
         return {
@@ -452,12 +459,10 @@ class Engine:
             "requests_per_s": len(done) / max(wall, 1e-9),
             "tokens_per_s": gen_tokens / max(wall, 1e-9),
             "gen_tokens": gen_tokens,
-            "latency_p50_s": float(np.percentile(lat, 50)) if len(lat)
-            else float("nan"),
-            "latency_p99_s": float(np.percentile(lat, 99)) if len(lat)
-            else float("nan"),
-            "ttft_p50_s": float(np.percentile(ttft, 50)) if len(ttft)
-            else float("nan"),
+            "delivery_p50_s": float(np.percentile(deliver, 50))
+            if len(deliver) else float("nan"),
+            "delivery_p99_s": float(np.percentile(deliver, 99))
+            if len(deliver) else float("nan"),
             "steps": self.batcher.steps,
             "occupancy": self.batcher.occupancy(self.capacity),
             "join_policy": self.batcher.join_policy,

@@ -61,6 +61,7 @@ class Request:
     t_admit: Optional[float] = None       # QUEUED -> PREFILLING
     t_first_token: Optional[float] = None  # PREFILLING -> DECODING
     t_finish: Optional[float] = None      # DECODING -> FINISHED
+    t_delivered: Optional[float] = None   # tokens on the host
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt)
@@ -110,24 +111,13 @@ class Request:
         self._to(RequestState.FINISHED)
         self.t_finish = now
 
-    def retire(self, tokens: np.ndarray) -> None:
+    def retire(self, tokens: np.ndarray,
+               now: Optional[float] = None) -> None:
         """Attach the fetched generation (called at the lazy batched
-        download, after ``to_finished``)."""
+        download, after ``to_finished``); ``now`` is when it reached the
+        host."""
         assert self.state is RequestState.FINISHED, self.state
         assert tokens.shape[0] == self.max_new_tokens, (
             tokens.shape, self.max_new_tokens)
         self.tokens = np.asarray(tokens)
-
-    def record(self) -> dict:
-        """JSON-friendly per-request metrics row."""
-        return {
-            "rid": self.rid,
-            "prompt_len": self.prompt_len,
-            "max_new_tokens": self.max_new_tokens,
-            "arrival_s": self.arrival_s,
-            "t_admit": self.t_admit,
-            "t_first_token": self.t_first_token,
-            "t_finish": self.t_finish,
-            "latency_s": self.latency_s,
-            "state": self.state.value,
-        }
+        self.t_delivered = now

@@ -562,7 +562,7 @@ class TestEngineScheduling:
         rt = _runtime("rwkv6-3b")
         rep = Engine(rt, capacity=2).run([_req(i, gen=2) for i in range(3)],
                                          respect_arrivals=False)
-        assert math.isfinite(rep["latency_p99_s"])
+        assert math.isfinite(rep["delivery_p99_s"])
         assert rep["requests_per_s"] > 0 and rep["tokens_per_s"] > 0
         assert rep["fetch_batches"] >= 1   # delegatestore: batched fetches
         # weights uploaded once, their bytes exactly
@@ -687,8 +687,8 @@ def test_port_serve_bench_quick_invariants(tmp_path):
     row = rows[0]
     assert row["n_requests"] == 20 and row["warm_tune_measurements"] == 0
     assert row["pool"]["in_use"] == 0
-    assert math.isfinite(row["continuous"]["latency_p99_s"])
-    assert math.isfinite(row["static"]["latency_p99_s"])
+    assert math.isfinite(row["continuous"]["delivery_p99_s"])
+    assert math.isfinite(row["static"]["delivery_p99_s"])
     assert out.exists()
 
 
