@@ -1,16 +1,22 @@
 """Readings from a ``torch.profiler`` trace of a short steady span: the
 device's busy time (the union of the intervals in which any kernel or
-copy ran), device time by kernel and under a profiler range, and the
-breakdown the result line carries."""
+copy ran), alone or within one interval of the trace, device time by
+kernel and under a profiler range, and the breakdown the result line
+carries."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-# the program's profiler ranges: they show on the device timeline as
-# annotations, which are not operations
+# the program's profiler ranges: in a trace with the host's ops they show
+# on the device timeline as annotations, which are not operations
 RANGES = ("flash_attention.backward", "optimizer.update")
+# the train driver launches ``torch.cuda._sleep(0)`` on the compute
+# stream before each traced step: that kernel's start on the device
+# timeline is the step's device start (a trace of the device's operations
+# alone holds no profiler range to mark it with)
+STEP_MARK = "spin_kernel"
 
 
 def _device_events(prof):
@@ -100,24 +106,63 @@ def breakdown(prof, prof_ops=None) -> Dict[str, List[List]]:
             else []}
 
 
-def summary(prof, window_s: float) -> Optional[Dict[str, float]]:
-    """busy_s (the device's busy time in the trace) and window_s (the
-    traced span's host time), or None if no device op ran."""
+def step_interval(prof, n: int) -> Optional[Tuple[float, float]]:
+    """The ``n`` steps before the last of a trace whose steps each begin
+    with the driver's mark (``STEP_MARK``): from the start of the mark
+    ``n`` before the last to the start of the last (µs on the trace's
+    timeline).  Counted from the end, since the tracer may lose records as
+    it starts.  None where the trace holds fewer than ``n + 1`` marks."""
+    marks = sorted(e.time_range.start for e in _device_events(prof)
+                   if STEP_MARK in e.name)
+    if len(marks) <= n:
+        return None
+    return marks[-1 - n], marks[-1]
+
+
+def in_interval(prof, interval: Tuple[float, float]
+                ) -> Optional[Dict[str, float]]:
+    """busy_s, the union of the device's operation intervals on every
+    stream intersected with ``interval`` (µs on the trace's timeline), and
+    window_s, the interval's length; None where no operation ran in it.
+    Both are counted in whole nanoseconds (the trace's own resolution) and
+    no piece starts before the last one ended, so busy_s <= window_s."""
+    lo, hi = (round(t * 1e3) for t in interval)
+    busy, end = 0, lo
+    for a, b in busy_intervals(prof):
+        a, b = max(round(a * 1e3), end), min(round(b * 1e3), hi)
+        if b > a:
+            busy, end = busy + b - a, b
+    if busy <= 0:
+        return None
+    return {"busy_s": busy / 1e9, "window_s": (hi - lo) / 1e9}
+
+
+def summary(prof, window: dict) -> Optional[Dict[str, float]]:
+    """busy_s and window_s of a traced span, or None if no device op ran.
+    A train window names how many steps it measured (``trace_steps``):
+    both numbers are then ``in_interval`` of ``step_interval``, one
+    interval of the trace (the step marks in it count as busy time: about
+    a µs a step).  A serve window gives ``trace_window_s``, the
+    traced span's length scaled to the untraced pace, set against the
+    whole trace's busy time."""
+    if "trace_steps" in window:
+        span = step_interval(prof, window["trace_steps"])
+        return None if span is None else in_interval(prof, span)
     busy = busy_s(prof)
     if busy <= 0:
         return None
-    return {"busy_s": busy, "window_s": window_s}
+    return {"busy_s": busy, "window_s": window["trace_window_s"]}
 
 
 def idle_share(ctx) -> Optional[float]:
     """The share (%) of the traced span in which no operation ran on the
-    device: 1 - (union of kernel and copy intervals) / (the span's host
-    time), from a trace of the device's operations alone (recording the
-    host's ops would slow the host and widen the gaps)."""
+    device: 1 - busy_s / window_s of ``summary``, from a trace of the
+    device's operations alone (recording the host's ops would slow the
+    host and widen the gaps)."""
     prof = ctx.get("prof")
     if prof is None:
         return None
-    s = summary(prof, ctx["window"]["trace_window_s"])
+    s = summary(prof, ctx["window"])
     if s is None:
         return None
     return 100.0 * (1.0 - s["busy_s"] / s["window_s"])

@@ -359,8 +359,7 @@ def run(c: dict, seed: int, seconds: float, trace: bool, dev,
     lat = e2e(w)
     ctx = {"cell": c, "window": w, "prof": w["prof"],
            "prof_ops": w["prof_ops"], "e2e": {"setup_s": setup_s, **lat}}
-    summ = None if w["prof"] is None else devicetrace.summary(
-        w["prof"], w["trace_window_s"])
+    summ = None if w["prof"] is None else devicetrace.summary(w["prof"], w)
     result = {"correct": ok, "attempted": len(reqs),
               "failed": len(reqs) - len(w["done"]),
               "peak_bytes": w["peak_bytes"], "summary": summ,

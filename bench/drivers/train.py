@@ -8,9 +8,12 @@ step through its first ``CHECKED`` steps (which also warm every shape),
 and reads their losses, the norm of each leaf's first gradient as the
 optimizer got it (its first moment after one step) and the norm of each
 leaf's change after the last of them.  The window then runs the same
-step back to back for ``seconds``, keeping one step in flight.  After the
-window the program's state is freed and the reference follows the
-checked steps from the same weights and batches.
+step back to back for ``seconds``, keeping one step in flight.  A traced
+run then records a few more steps run the same way, and takes the device's
+busy time and its span from one interval of that trace, between two
+steps' device starts (``devicetrace.summary``).  After the window the
+program's state is freed and the reference follows the checked steps from
+the same weights and batches.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from .common import (free, leaf_gap, on_cuda, peak_bytes, profiler,
                      reset_peak, sync, tree_map, verdict, warm_profiler)
 
 CHECKED = 3          # steps the reference follows
-TRACED_STEPS = 2     # steps the profiler records in a traced run
+FILL_STEPS = 1       # traced steps before the measured ones
+TRACED_STEPS = 2     # the measured steps of a traced run
 
 
 def _norms(tree, dev) -> Dict[str, float]:
@@ -113,26 +117,40 @@ class Setup:
                "last_loss": float(met["loss"]),
                "peak_bytes": peak_bytes(dev), "prof": None, "prof_ops": None}
         if trace:
-            # the device alone over TRACED_STEPS steps (busy, idle, kernels),
+            out["prof"] = self._traced(dev)
+            out["trace_steps"] = TRACED_STEPS
             # then one step with the host's ops too (ranges, idle gaps)
-            sync(dev)
-            h0 = time.perf_counter()
-            with profiler(dev, host_ops=False) as prof:
-                for _ in range(TRACED_STEPS):
-                    self.params, self.state, _ = self.step(
-                        self.params, self.state, next(self.it))
-                sync(dev)
-            # the tracer slows the host (tens of µs a launch) and not the
-            # device: the traced steps' busy time is set against the time
-            # those steps take untraced, the window's mean step
-            out["traced_wall_s"] = time.perf_counter() - h0
-            out["trace_window_s"] = TRACED_STEPS * window_s / steps
             with profiler(dev, host_ops=True) as ops:
                 self.params, self.state, _ = self.step(
                     self.params, self.state, next(self.it))
                 sync(dev)
-            out["prof"], out["prof_ops"] = prof, ops
+            out["prof_ops"] = ops
         return out
+
+    def _traced(self, dev):
+        """A trace of the device alone over steps run as the window runs
+        them (one in flight, no drain between), each after its mark
+        (``devicetrace.STEP_MARK``): FILL_STEPS steps fill the pipeline
+        (and hold whatever the tracer loses as it starts), the next
+        TRACED_STEPS are measured, and the last step's mark ends them.
+        The store copies an offloaded step leaves in flight overlap the
+        next step here as they do in the window."""
+        prev = None
+        with profiler(dev, host_ops=False) as prof:
+            for _ in range(FILL_STEPS + TRACED_STEPS + 1):
+                batch = next(self.it)
+                if on_cuda(dev):
+                    torch.cuda._sleep(0)
+                self.params, self.state, _ = self.step(self.params,
+                                                       self.state, batch)
+                if on_cuda(dev):
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    if prev is not None:
+                        prev.synchronize()
+                    prev = ev
+            sync(dev)
+        return prof
 
     def close(self) -> None:
         self.it.close()
@@ -229,15 +247,16 @@ def run(c: dict, seed: int, seconds: float, trace: bool, dev,
     ctx = trace_context(c, w)
     ctx["e2e"] = {"setup_s": setup_s,
                   "train_tokens_per_s": w["train_tokens_per_s"]}
-    summ = None if w["prof"] is None else devicetrace.summary(
-        w["prof"], w["trace_window_s"])
+    summ = None if w["prof"] is None else devicetrace.summary(w["prof"], w)
     result = {"correct": ok, "attempted": w["steps"], "failed": 0,
               "peak_bytes": w["peak_bytes"], "summary": summ,
               "readings": {"worst_leaves": worst_leaves(st.readings, ref),
                            "losses": st.readings["losses"],
                            "ref_losses": ref["losses"],
                            "steps": w["steps"], "window_s": w["window_s"],
-                           "traced_wall_s": w.get("traced_wall_s")}}
+                           "step_s": w["step_s"],
+                           "traced_step_s": None if summ is None
+                           else summ["window_s"] / TRACED_STEPS}}
     if w["prof"] is not None:
         result["breakdown"] = devicetrace.breakdown(w["prof"], w["prof_ops"])
     return result, checks, ctx

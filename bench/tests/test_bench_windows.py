@@ -52,6 +52,14 @@ def test_traced_window(name, capsys):
     # the CPU has no device trace: its readers stay silent
     assert not any("roofline" in k or "idle" in k for k in line["metrics"])
     assert line["metrics"]
+    if name == TRAIN:
+        # the traced interval's pace beside the window's; no device trace
+        # here, so no interval and no busy time
+        r = line["readings"]
+        assert r["step_s"] > 0 and "traced_step_s" in r
+        assert r["traced_step_s"] is None
+        assert "traced_wall_s" not in r
+        assert not {"busy_s", "window_s"} & set(line["device"])
 
 
 @pytest.mark.parametrize("fault", sorted(faults.TRAIN))
