@@ -11,7 +11,9 @@ commit unpacked under ``build/``).  For each DIR in the order given (list
 one twice to alternate: old new new old) a fresh Python process imports
 that checkout's ``chip_smoke`` and runs its environment and build phases,
 then the named kernel phases: ``flash`` (``phase_kernel``: flash attention
-on both routes at qwen2.5-14b and recurrentgemma-2b widths), ``wkv6``,
+on both routes at qwen2.5-14b and recurrentgemma-2b widths),
+``flash_bwd`` (``phase_flash_bwd_kernel``: the sm90 backward at
+internlm2-20b's train-4k call), ``wkv6``,
 ``rglru`` and ``rmsnorm``.  Their JSON lines are printed prefixed with
 ``{"tree": DIR, ...}``.  Every phase checks its kernel against the plain
 version as the smoke run does, so a failed check fails this run too.
@@ -25,7 +27,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = {"flash": "phase_kernel", "wkv6": "phase_wkv6_kernel",
+PHASES = {"flash": "phase_kernel", "flash_bwd": "phase_flash_bwd_kernel",
+          "wkv6": "phase_wkv6_kernel",
           "rglru": "phase_rglru_kernel", "rmsnorm": "phase_rmsnorm_kernel"}
 
 CHILD = """

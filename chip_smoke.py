@@ -26,7 +26,10 @@ Drives the port's main path through its public entry points and checks it:
    recurrentgemma-2b's width (a, b (1,4096,2560) fp32), once more with
    exact zeros, 1e-30 and 1.0 among the decays, at (2,16384,512) for a
    deep look-back, with its (Tc, Dc) tile reported; rmsnorm on
-   x (4096,2560), fp32 and bf16, beside torch.nn.functional.rms_norm.
+   x (4096,2560), fp32 and bf16, beside torch.nn.functional.rms_norm;
+   flash's sm90 backward at internlm2-20b's train-4k call (BK 8, S 4096,
+   G 6, D 128) and at D = 64, G 1 against the plain fp32 backward, beside
+   the blockwise recompute and scaled_dot_product_attention's backward.
    The PyTorch calls are yardsticks the port never calls;
 4. polybench: the ten problems at their default sizes, optimized and naive
    plans, interpreted and compiled, on the torch backend on cuda, against
@@ -90,8 +93,9 @@ Drives the port's main path through its public entry points and checks it:
    layers, flash's sm90 route, AdamW, ``PrefetchIterator``: one warm
    step, three timed with CUDA events (median step ms, tokens/s, peak
    memory), one under torch.profiler (busy share; flash's forward, its
-   blockwise backward, the other GEMMs, the optimizer update), eight sm90
-   launches a step, finite losses; (c) bf16, 2 of 48 layers, two steps of
+   sm90 backward, the other GEMMs, the optimizer update), eight sm90
+   forward and four sm90 backward launches a step, finite losses; (c)
+   bf16, 2 of 48 layers, two steps of
    ``offloaded_optimizer(adamw())`` against ``adamw()`` from the same
    start: params bitwise equal, the state in pinned host memory, each
    run's device peak, the host's MemTotal;
@@ -130,7 +134,7 @@ Drives the port's main path through its public entry points and checks it:
    collectives of a meshed step counted; then bf16 steps of 4 layers
    timed unmeshed, meshed and unmeshed again (the DTensor overhead is
    reported, not gated), the meshed first step counted (flash's sm90
-   kernel twice per layer, nothing else), its loss within 1e-5 of the
+   forward twice per layer, its sm90 backward once, nothing else), its loss within 1e-5 of the
    unmeshed one and its gradients within MESH_BF16_GRAD_TOL leaf by
    leaf, the drift of later losses reported beside that of a run with
    the plain attention; (d) rwkv6-3b and recurrentgemma-2b fp32 forwards
@@ -151,8 +155,9 @@ Drives the port's main path through its public entry points and checks it:
    ``offload_opt=True`` (each rank's state shards pinned ``PinnedShard``s,
    the update streamed piece by piece, Adafactor's pieces as DTensors)
    from the same params and batch: params and state bitwise equal, the
-   offloaded state pinned, flash's sm90 kernel twice per layer a step in
-   the offloaded run (the forward and its recompute) and nothing else,
+   offloaded state pinned, flash's sm90 forward twice per layer a step in
+   the offloaded run (the forward and its recompute), its sm90 backward
+   once, and nothing else,
    each run's peak and step ms; then that state saved by ``CheckpointManager``
    and restored by its offload shardings, bitwise and pinned; (f)
    moe_mesh: qwen3-moe-30b-a3b at full width, bf16, 2 of 48 layers,
@@ -179,7 +184,9 @@ attn_step, model_forward, train (a), tuner, mesh and trajectory (the
 attn_step gate program's tuning) for flash's SIMT route
 (``flash_attention``), model_forward (the zoo's runs included), train
 (b), mesh (c)'s bf16 step, mesh (e)'s offloaded step and mesh (f)'s
-forward for its sm90 route (``flash_attention_sm90``), wkv6 and
+forward for its sm90 route (``flash_attention_sm90``), train (b), mesh
+(c)'s bf16 step and mesh (e)'s offloaded step for the sm90 backward
+(``flash_attention_bwd_sm90``, in ``flash_attention_sm90.cu``), wkv6 and
 rglru_scan (model_forward and mesh), rmsnorm_path for rmsnorm; comparison
 launches are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
@@ -271,9 +278,12 @@ HOLD_CYCLES = 2_000_000
 # the TPU kernel each CUDA kernel replaces
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
             "flash_attention_sm90": "src/repro/kernels/flash_attention.py:80",
+            "flash_attention_bwd_sm90": "src/repro/kernels/ops.py:49",
             "wkv6": "src/repro/kernels/wkv6.py:86",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:56",
             "rmsnorm": "src/repro/kernels/rmsnorm.py:22"}
+# a kernel's source under csrc/, where it is not named after the kernel
+SOURCES = {"flash_attention_bwd_sm90": "flash_attention_sm90"}
 # serve (a): the fp32 exactness runs' depth, and the one tolerance on the
 # tokens: a request may differ from its standalone decode only where that
 # decode's top two logits lie within SERVE_TIE x max|logit| of each other
@@ -548,6 +558,93 @@ def phase_kernel(peaks: dict) -> dict:
               f"flash at {model} width: want the sm90 route in bf16")
     return {"flash_attention": qwen[("float32", 0)],
             "flash_attention_sm90": qwen[("bfloat16", 0)]}
+
+
+def phase_flash_bwd_kernel(peaks: dict) -> dict:
+    """flash's sm90 backward at internlm2-20b's train-4k call (BK 8,
+    S = T = 4096, G 6, D 128, causal, bf16) and at D = 64 (G 1): the
+    kernels against the plain fp32 backward (normwise, the card tests'
+    2e-2; a bk at a time), then the kernels', the plain version's, the
+    blockwise recompute's (the other route's backward) and
+    scaled_dot_product_attention's backward's times beside the bound of
+    2.5 times the forward's causal FLOPs, and the forward's time with and
+    without writing the lse.  Returns the train-4k row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import blockwise_attention
+
+    rows = {}
+    for BK, G, D in ((8, 6, 128), (8, 1, 64)):
+        S = T = 4096
+        rng = np.random.default_rng(BK * G * D)
+        q = torch.from_numpy(rng.standard_normal((BK, S, G, D)).astype(
+            np.float32) / D ** 0.5).to("cuda", torch.bfloat16)
+        k, v = (torch.from_numpy(rng.standard_normal((BK, T, D)).astype(
+            np.float32)).to("cuda", torch.bfloat16) for _ in range(2))
+        g = torch.from_numpy(rng.standard_normal((BK, S, G, D)).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        o, lse = fa.flash_attention_folded(q, k, v, return_lse=True)
+        before = fa.launches_bwd_sm90
+        got = fa.flash_attention_bwd_folded(q, k, v, o, g, lse)
+        torch.cuda.synchronize()
+        check(fa.launches_bwd_sm90 == before + 1, "sm90 backward not counted")
+        num = [0.0, 0.0, 0.0]
+        den = [0.0, 0.0, 0.0]
+        for i in range(BK):
+            f32 = [x[i:i + 1].float() for x in (q, k, v)]
+            of, lsef = fa.flash_attention_plain(*f32, return_lse=True)
+            want = fa.flash_attention_bwd_plain(*f32, of, g[i:i + 1].float(),
+                                                lsef)
+            for j, (a, b) in enumerate(zip(got, want)):
+                num[j] += float((a[i:i + 1].float() - b).norm() ** 2)
+                den[j] += float(b.norm() ** 2)
+            del f32, of, lsef, want
+        err = max((n / d) ** 0.5 for n, d in zip(num, den))
+        check(err <= BF16_TOL, f"flash sm90 backward vs plain fp32 at D = {D}"
+              f", G = {G}: normwise err {err} > {BF16_TOL}")
+        kernel_ms = time_ms(lambda: fa.flash_attention_bwd_folded(
+            q, k, v, o, g, lse))
+        fwd_ms = time_ms(lambda: fa.flash_attention_folded(q, k, v))
+        fwd_lse_ms = time_ms(lambda: fa.flash_attention_folded(
+            q, k, v, return_lse=True))
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, g, lse), reps=3, warm=1)
+        xs = [x.reshape(1, BK, S, G, D).permute(0, 2, 1, 3, 4) if x is q
+              else x.reshape(1, BK, T, D).permute(0, 2, 1, 3)
+              for x in (q, k, v)]
+        xs = [x.detach().clone().requires_grad_() for x in xs]
+        ob = blockwise_attention(*xs)
+        gb = g.reshape(1, BK, S, G, D).permute(0, 2, 1, 3, 4)
+        blockwise_ms = time_ms(lambda: torch.autograd.grad(
+            ob, xs, gb, retain_graph=True), reps=3, warm=1)
+        del xs, ob
+        qs = q.transpose(1, 2).detach().clone().requires_grad_()
+        ks, vs = (x[:, None].detach().clone().requires_grad_()
+                  for x in (k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             scale=1.0, enable_gqa=True)
+        gs = g.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), gs, retain_graph=True))
+        del qs, ks, vs, out
+        flops = 2.5 * 4.0 * BK * G * D * (S * (S + 1) // 2)
+        nbytes = 2.0 * (4 * BK * S * G * D + 4 * BK * T * D)
+        bound_ms, bound_by = _bound_ms(flops, nbytes, peaks["bf16"], peaks)
+        row = {"route": "sm90", "dtype": "bfloat16", "BK": BK, "S": S,
+               "G": G, "D": D, "max_norm_err": err, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "blockwise_ms": blockwise_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "roofline_pct":
+               100.0 * bound_ms / kernel_ms, "fwd_ms": fwd_ms,
+               "fwd_lse_ms": fwd_lse_ms}
+        report("kernel_vs_plain", kernel="flash_attention_bwd_sm90", **row)
+        rows[(G, D)] = row
+        del q, k, v, g, o, lse, got
+        torch.cuda.empty_cache()
+    return rows[(6, 128)]
 
 
 def _close(got, want, tol: float):
@@ -875,12 +972,15 @@ def _attn_step_plain_loss(prog):
 
 def _counters() -> dict:
     """The main path's launch counters, by their name in the kernels line:
-    (module, attribute).  Flash counts each route apart."""
+    (module, attribute).  Flash counts each route apart, and the sm90
+    backward beside them."""
     from repro_torch.kernels import flash_attention, rglru_scan, wkv6
     return {"wkv6": (wkv6, "launches"),
             "rglru_scan": (rglru_scan, "launches"),
             "flash_attention": (flash_attention, "launches_simt"),
-            "flash_attention_sm90": (flash_attention, "launches_sm90")}
+            "flash_attention_sm90": (flash_attention, "launches_sm90"),
+            "flash_attention_bwd_sm90": (flash_attention,
+                                         "launches_bwd_sm90")}
 
 
 def _launch_counts() -> dict:
@@ -893,17 +993,23 @@ def _set_launch_counts(counts: dict) -> None:
         setattr(mod, attr, counts[name])
 
 
-def _expected_launches(cfg, dtype, n_forwards: int = 1) -> dict:
+def _expected_launches(cfg, dtype, n_forwards: int = 1,
+                       n_backwards: int = 0) -> dict:
     """One launch per layer of the kernel's kind; attention layers go to
-    the flash route that ``dtype`` and the head dim select."""
+    the flash route that ``dtype`` and the head dim select, and each of
+    ``n_backwards`` backward passes to flash's sm90 backward where
+    ``bwd_route`` names it (self-attention: every row sees a key)."""
     from repro_torch.kernels import flash_attention as fa
     kinds = cfg.layer_kinds()
     attn = n_forwards * kinds.count("attn")
     sm90 = fa.route(dtype, cfg.d_head) == "sm90"
+    bwd = fa.bwd_route(dtype, cfg.d_head, 1, 1, 0) == "sm90"
     return {"wkv6": n_forwards * kinds.count("rwkv"),
             "rglru_scan": n_forwards * kinds.count("rglru"),
             "flash_attention": 0 if sm90 else attn,
-            "flash_attention_sm90": attn if sm90 else 0}
+            "flash_attention_sm90": attn if sm90 else 0,
+            "flash_attention_bwd_sm90": n_backwards * kinds.count("attn")
+            if bwd else 0}
 
 
 def _perturb_constants(params, generator, scale: float = 0.1) -> None:
@@ -1724,8 +1830,9 @@ def _train_kernel_vs_plain(smi: str) -> dict:
 def _train_breakdown(prof) -> dict:
     """A profiled train step's device time by part, as {part: [ms,
     calls]}: flash's sm90 forward kernel by name (the forward and the
-    recompute), flash's backward (the ``blockwise_attention`` recompute
-    and its gradient: everything under ``ops.BACKWARD_RANGE``), the
+    recompute), flash's backward (the sm90 backward's kernels, or the
+    ``blockwise_attention`` recompute and its gradient: everything under
+    ``ops.BACKWARD_RANGE``), the
     optimizer update (under ``adamw.UPDATE_RANGE``), the other GEMMs
     (``mm``, ``addmm``, ``bmm`` outside those two ranges), and the rest
     of the device's busy time; with the largest kernels."""
@@ -1825,7 +1932,8 @@ def _train_timed(smi: str, peaks: dict) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = TRAIN_TIMED_STEPS + 2
     want = {**dict.fromkeys(_counters(), 0),
-            "flash_attention_sm90": 2 * TRAIN_TIMED_LAYERS * n_steps}
+            "flash_attention_sm90": 2 * TRAIN_TIMED_LAYERS * n_steps,
+            "flash_attention_bwd_sm90": TRAIN_TIMED_LAYERS * n_steps}
     check(counts == want, f"train (b): launches {counts}, want {want}")
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses),
@@ -1860,6 +1968,8 @@ def _train_timed(smi: str, peaks: dict) -> dict:
            breakdown_ms=parts, losses=losses, losses_finite=True,
            launches=counts,
            sm90_launches_per_step=counts["flash_attention_sm90"] / n_steps,
+           sm90_bwd_launches_per_step=counts["flash_attention_bwd_sm90"]
+           / n_steps,
            bound_ms=bound_ms, bound_flops=flops, bound_opt_bytes=opt_bytes,
            seconds=time.perf_counter() - t_run, card=smi)
     del params, state, m, step
@@ -2371,7 +2481,7 @@ def _mesh_train_bf16(mesh, smi: str) -> dict:
     unmeshed ones, reported, not gated).  The meshed first step is the
     main path's: its launches are counted and must be flash's sm90
     kernel twice per attention layer (the forward and the backward's
-    recompute) and nothing else; its loss, taken before any update, must
+    recompute), its sm90 backward once, and nothing else; its loss, taken before any update, must
     be within MESH_LOSS_RTOL of the unmeshed one.  The first step's
     gradients, meshed against unmeshed, must agree leaf by leaf within
     MESH_BF16_GRAD_TOL normwise; the plain attention's against the
@@ -2396,7 +2506,8 @@ def _mesh_train_bf16(mesh, smi: str) -> dict:
     params = Transformer(cfg).init(gen)
     batch = _train_batch(cfg, 1)
     want = {**dict.fromkeys(_counters(), 0),
-            **_expected_launches(cfg, torch.bfloat16, n_forwards=2)}
+            **_expected_launches(cfg, torch.bfloat16, n_forwards=2,
+                                 n_backwards=1)}
     runs, counts = [], None
     before = _launch_counts()
     for label, meshed, kernels in (("unmeshed", False, True),
@@ -2660,7 +2771,8 @@ def _mesh_offload(mesh, smi: str) -> dict:
     run warms it; the second is the one to compare).  (a) Params and
     state bitwise equal, every offloaded array a pinned ``PinnedShard``,
     the offloaded steps counted (flash's sm90 kernel once per layer in
-    each forward and once in its recompute, nothing else), each run's
+    each forward and once in its recompute, its sm90 backward once per
+    layer a step, nothing else), each run's
     peak and step ms; (b) the
     offloaded state saved with ``CheckpointManager`` and restored by its
     offload shardings: bitwise, pinned.  Returns the counted launches."""
@@ -2684,7 +2796,8 @@ def _mesh_offload(mesh, smi: str) -> dict:
     batch = _train_batch(cfg, 2)
     want = {**dict.fromkeys(_counters(), 0),
             **_expected_launches(cfg, torch.bfloat16,
-                                 n_forwards=2 * OFFLOAD_MESH_STEPS)}
+                                 n_forwards=2 * OFFLOAD_MESH_STEPS,
+                                 n_backwards=OFFLOAD_MESH_STEPS)}
     before = _launch_counts()
     runs, out, counts = {}, {}, None
     default_optimizer = steps.default_optimizer
@@ -2981,6 +3094,7 @@ def main() -> int:
     peaks = card_peaks(torch.cuda.get_device_name(0))
     phase_build()
     rows = {**phase_kernel(peaks),
+            "flash_attention_bwd_sm90": phase_flash_bwd_kernel(peaks),
             "wkv6": phase_wkv6_kernel(peaks),
             "rglru_scan": phase_rglru_kernel(peaks),
             "rmsnorm": phase_rmsnorm_kernel(peaks)}
@@ -3008,9 +3122,10 @@ def main() -> int:
         check(launches[name] > 0, f"the main path never launched {name}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-        "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+        "source": f"src/repro_torch/kernels/csrc/{SOURCES.get(name, name)}"
+        ".cu", "replaces": REPLACES[name], "launches": launches[name],
+        **{k: row[k] for k in ("max_abs_err", "max_norm_err") if k in row},
+        "ms": row["kernel_ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         for name, row in rows.items()]}), flush=True)

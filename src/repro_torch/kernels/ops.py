@@ -36,46 +36,83 @@ def fold_attention(q, k, v):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel's forward with the reference's backward: the gradient
-    is recomputed through ``models.attention.blockwise_attention``, the
-    memory-efficient form the reference's ``_flash_bwd`` differentiates
-    (``src/repro/kernels/ops.py``).  CPU tensors take the same Function,
-    with the kernel's plain version as the forward."""
+    """The kernel's forward with a backward by ``_fa.bwd_route``: on a card,
+    bf16 at D = 64 or 128 (the sm90 route, every row seeing a key) takes
+    the sm90 backward kernels, fed the forward's log-sum-exp, which only a
+    forward that records a gradient (``grad``) asks for; every other case,
+    CPU tensors too, recomputes the gradient through
+    ``models.attention.blockwise_attention``, the memory-efficient form the
+    reference's ``_flash_bwd`` differentiates (``src/repro/kernels/ops.py``).
+    CPU tensors take the kernel's plain version as the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+    def forward(ctx, q, k, v, causal, window, block_q, block_k, grad):
         B, S, K, G, D = q.shape
-        o = _fa.flash_attention_folded(*fold_attention(q, k, v),
-                                       causal=causal, window=window,
-                                       block_q=block_q, block_k=block_k)
-        ctx.save_for_backward(q, k, v)
+        T = k.shape[1]
+        folded = fold_attention(q, k, v)
+        ctx.kernel_bwd = grad and q.device.type == "cuda" and \
+            _fa.bwd_route(q.dtype, D, S, T, window) == "sm90"
+        out = _fa.flash_attention_folded(*folded, causal=causal,
+                                         window=window, block_q=block_q,
+                                         block_k=block_k,
+                                         return_lse=ctx.kernel_bwd)
+        if ctx.kernel_bwd:
+            o = out[0]
+            ctx.save_for_backward(*folded, *out)     # qf, kf, vf, o, lse
+        else:
+            o = out
+            ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
         return o.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4)
 
     @staticmethod
     def backward(ctx, g):
-        from ..models.attention import blockwise_attention
-        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
-        with torch.enable_grad(), torch.profiler.record_function(
-                BACKWARD_RANGE):
-            o = blockwise_attention(q, k, v, causal=ctx.causal,
-                                    window=ctx.window)
-            dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
-        return dq, dk, dv, None, None, None, None
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            grads = _kernel_backward(ctx, g) if ctx.kernel_bwd \
+                else _blockwise_backward(ctx, g)
+        return (*grads, None, None, None, None, None)
+
+
+def _kernel_backward(ctx, g):
+    """The sm90 backward on the folded layout, the folding and the 1/sqrt(D)
+    scale of ``fold_attention`` undone."""
+    qf, kf, vf, o, lse = ctx.saved_tensors
+    B, S, K, G, D = g.shape
+    T = kf.shape[1]
+    gf = g.permute(0, 2, 1, 3, 4).reshape(B * K, S, G, D).contiguous()
+    dq, dk, dv = _fa.flash_attention_bwd_folded(
+        qf, kf, vf, o, gf, lse, causal=ctx.causal, window=ctx.window)
+    dq = dq.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4) * (1.0 / D ** 0.5)
+    return (dq, *(x.reshape(B, K, T, D).permute(0, 2, 1, 3)
+                  for x in (dk, dv)))
+
+
+def _blockwise_backward(ctx, g):
+    """The gradient recomputed through ``blockwise_attention``."""
+    from ..models.attention import blockwise_attention
+    q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+    with torch.enable_grad():
+        o = blockwise_attention(q, k, v, causal=ctx.causal, window=ctx.window)
+        return torch.autograd.grad(o, (q, k, v), g)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_q: int = 128, block_k: int = 128):
     """q: (B, S, K, G, D); k, v: (B, T, K, D) → (B, S, K, G, D).
-    Differentiable: the kernel's forward, and a backward that recomputes
-    through ``blockwise_attention``."""
+    Differentiable: the kernel's forward, and the backward
+    ``_fa.bwd_route`` names: the sm90 kernels for bf16 at D = 64 or 128 on
+    a card, else a recompute through ``blockwise_attention``."""
     if any(isinstance(x, np.ndarray) for x in (q, k, v)):
         out = flash_attention(*(torch.as_tensor(np.asarray(x))
                                 for x in (q, k, v)),
                               causal=causal, window=window,
                               block_q=block_q, block_k=block_k)
         return np.ascontiguousarray(out.numpy())
-    return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k)
+    # autograd calls forward under no_grad: whether this call records a
+    # gradient is known only here
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, window, block_q, block_k,
+                                 grad)
 
 
 def _no_backward(kernel: str, *inputs) -> None:

@@ -41,7 +41,8 @@ __all__ = ["RANGES", "SPANS", "UPDATE_RANGE", "BACKWARD_RANGE",
 # the profiler ranges (``record_function``): the device trace shows them
 # as annotations, and its readers leave them out by these names
 UPDATE_RANGE = "optimizer.update"            # an optimizer's update
-BACKWARD_RANGE = "flash_attention.backward"  # flash's blockwise backward
+# flash's backward: the sm90 kernels' launches, or the blockwise recompute
+BACKWARD_RANGE = "flash_attention.backward"
 RANGES = (UPDATE_RANGE, BACKWARD_RANGE)
 
 # the program spans (in memory only) and the attributes they carry

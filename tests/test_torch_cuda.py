@@ -469,10 +469,12 @@ def test_cuda_bf16_forward_through_sm90_matches_plain(cuda):
 
 def _grad_pair(q, k, v, g, window):
     """(q, k, v) gradients through ops.flash_attention (the kernel's
-    forward, the blockwise backward) and through the plain version."""
+    forward, the backward ``fa.bwd_route`` names) and through the plain
+    version in fp32 on the same (upcast) inputs."""
     outs = []
     for fwd in ("kernel", "plain"):
-        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        xs = [(x if fwd == "kernel" else x.float()).detach().clone()
+              .requires_grad_() for x in (q, k, v)]
         if fwd == "kernel":
             o = ops.flash_attention(*xs, causal=True, window=window)
         else:
@@ -481,34 +483,205 @@ def _grad_pair(q, k, v, g, window):
                                          causal=True, window=window)
             o = o.reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4)
         assert o.requires_grad and o.grad_fn is not None
-        outs.append(torch.autograd.grad(o, xs, g))
+        outs.append(torch.autograd.grad(o, xs, g.to(o.dtype)))
     return outs
 
 
+def _flash_counts():
+    return fa.launches_sm90, fa.launches_simt, fa.launches_bwd_sm90
+
+
 @pytest.mark.parametrize("dtype,D,tol", [("float32", 64, 1e-4),
-                                         ("bfloat16", 128, 2e-2)])
+                                         ("bfloat16", 64, 2e-2),
+                                         ("bfloat16", 128, 2e-2),
+                                         ("bfloat16", 256, 2e-2)])
+@pytest.mark.parametrize("G,S", [(5, 128), (6, 100)])
 @pytest.mark.parametrize("window", [0, 16])
-def test_cuda_flash_gradient_matches_plain(cuda, dtype, D, tol, window):
-    """fp32 (the SIMT route) to 1e-4 of the gradient's scale; bf16 at
-    D = 128 (the sm90 route) to 2e-2 normwise."""
-    rng = np.random.default_rng(D + window)
-    B, S, K, G = 1, 128, 2, 5
+def test_cuda_flash_gradient_matches_plain(cuda, dtype, D, tol, window, G,
+                                           S):
+    """Gradients through ops.flash_attention against the plain version's
+    in fp32.  fp32 (the SIMT route, the blockwise backward) to 1e-4 of the
+    gradient's scale.  bf16 on the sm90 route to 2e-2 normwise, the
+    reference's bf16 kernel tolerance: at D = 64 and 128 the sm90 backward
+    (launched once a call, counted by ``launches_bwd_sm90``) rounds P and
+    dS to bf16 before their products and dq, dk, dv at the end (2^-9
+    relative each, about 1e-2 normwise at most after the sums); at
+    D = 256 the blockwise recompute rounds only the result.  S = 100 ends
+    inside a 64-row tile and a 64-key chunk."""
+    rng = np.random.default_rng(D + window + G)
+    B, K = 1, 2
     q, k, v, g = (torch.from_numpy(_normal(s, rng)).to(cuda,
                                                        getattr(torch, dtype))
                   for s in ((B, S, K, G, D), (B, S, K, D), (B, S, K, D),
                             (B, S, K, G, D)))
-    before = (fa.launches_sm90, fa.launches_simt)
+    before = _flash_counts()
     got, want = _grad_pair(q, k, v, g, window)
+    torch.cuda.synchronize()
     route = fa.route(q.dtype, D)
-    assert (fa.launches_sm90 - before[0], fa.launches_simt - before[1]) \
-        == ((1, 0) if route == "sm90" else (0, 1))
+    bwd = fa.bwd_route(q.dtype, D, S, S, window)
+    assert bwd == ("sm90" if dtype == "bfloat16" and D < 256
+                   else "blockwise")
+    assert tuple(a - b for a, b in zip(_flash_counts(), before)) == (
+        int(route == "sm90"), int(route == "simt"), int(bwd == "sm90"))
     for a, b in zip(got, want):
         a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
         if dtype == "float32":
             err = ((a - b).abs().max() / b.abs().max()).item()
         else:
             err = ((a - b).norm() / b.norm()).item()
-        assert err <= tol, (route, err)
+        assert err <= tol, (route, bwd, err)
+
+
+@pytest.mark.parametrize("D", fa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("G,S", [(1, 100), (6, 300), (5, 515)])
+@pytest.mark.parametrize("window", [0, 64])
+def test_cuda_sm90_lse_matches_plain(cuda, D, G, S, window):
+    """The forward's lse (``return_lse``) is the plain version's
+    logsumexp: within 1e-4 absolute and relative (fp32 sums in another
+    order, exp2 on the MUFU unit at 2^-22 relative), the output the same
+    bits as a forward-only call, which writes no lse."""
+    rng = np.random.default_rng(D + G + S + window)
+    BK = 2
+    q = _normal((BK, S, G, D), rng) / D ** 0.5
+    k, v = _normal((BK, S, D), rng), _normal((BK, S, D), rng)
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in (q, k, v))
+    tiles = dict(block_q=S, block_k=S)
+    o, lse = fa.flash_attention_folded(q, k, v, window=window,
+                                       return_lse=True, **tiles)
+    assert lse.shape == (BK, S, G) and lse.dtype == torch.float32
+    assert torch.equal(o, fa.flash_attention_folded(q, k, v, window=window,
+                                                    **tiles))
+    _, want = fa.flash_attention_plain(q, k, v, window=window,
+                                       return_lse=True)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", fa.SM90_BWD_HEAD_DIMS)
+@pytest.mark.parametrize("G,S,T,window", [
+    (G, S, T, w) for G, S, T in ((1, 100, 100), (6, 300, 300), (5, 515, 515),
+                                 (6, 64, 200), (6, 200, 72))
+    for w in (0, 64) if not (w and S - T >= w)])   # rows see no key
+def test_cuda_sm90_bwd_matches_plain(cuda, D, G, S, T, window):
+    """The sm90 backward on the folded layout against the plain backward
+    in fp32 fed the plain forward's o and lse: dq, dk, dv within 2e-2
+    normwise (the gradient test's reason), with ragged row tiles and key
+    tiles, more keys than queries and fewer (rows past the last key see
+    them all), every group size's straddling rows.  One launch a call."""
+    rng = np.random.default_rng(D + G + S + T + window)
+    BK = 2
+    q = _normal((BK, S, G, D), rng) / D ** 0.5
+    k, v = _normal((BK, T, D), rng), _normal((BK, T, D), rng)
+    g = _normal((BK, S, G, D), rng)
+    q, k, v, g = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                  for x in (q, k, v, g))
+    o, lse = fa.flash_attention_folded(q, k, v, window=window,
+                                       return_lse=True, block_q=S, block_k=T)
+    before = fa.launches_bwd_sm90
+    got = fa.flash_attention_bwd_folded(q, k, v, o, g, lse, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_sm90 == before + 1
+    f32 = [x.float() for x in (q, k, v)]
+    of, lsef = fa.flash_attention_plain(*f32, window=window, return_lse=True)
+    want = fa.flash_attention_bwd_plain(*f32, of, g.float(), lsef,
+                                        window=window)
+    for name, a, b in zip("qkv", got, want):
+        err = ((a.float() - b).norm() / b.norm()).item()
+        assert err <= 2e-2, (name, err)
+
+
+def test_cuda_sm90_bwd_at_the_train_cell_shape(cuda):
+    """internlm2-20b's train-4k call: BK 8, S = T = 4096, G 6, D 128,
+    causal, through ops.flash_attention's forward and backward: dq, dk, dv
+    within 2e-2 normwise of the plain fp32 backward (computed a bk at a
+    time to bound its memory), one sm90 backward launch."""
+    rng = np.random.default_rng(4096)
+    B, S, K, G, D = 1, 4096, 8, 6, 128
+    q, k, v, g = (torch.from_numpy(_normal(s, rng)).to(cuda, torch.bfloat16)
+                  for s in ((B, S, K, G, D), (B, S, K, D), (B, S, K, D),
+                            (B, S, K, G, D)))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = _flash_counts()
+    o = ops.flash_attention(*xs, causal=True)
+    got = torch.autograd.grad(o, xs, g)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_flash_counts(), before)) == (1, 0, 1)
+    qf, kf, vf = (x.float() for x in ops.fold_attention(q, k, v))
+    gf = g.float().permute(0, 2, 1, 3, 4).reshape(B * K, S, G, D)
+    parts = []
+    for i in range(B * K):
+        sl = slice(i, i + 1)
+        of, lse = fa.flash_attention_plain(qf[sl], kf[sl], vf[sl],
+                                           return_lse=True)
+        parts.append(fa.flash_attention_bwd_plain(qf[sl], kf[sl], vf[sl], of,
+                                                  gf[sl], lse))
+    dqf, dkf, dvf = (torch.cat(x) for x in zip(*parts))
+    want = [(dqf / D ** 0.5).reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4),
+            dkf.reshape(B, K, S, D).permute(0, 2, 1, 3),
+            dvf.reshape(B, K, S, D).permute(0, 2, 1, 3)]
+    for name, a, b in zip("qkv", got, want):
+        err = ((a.float() - b).norm() / b.norm()).item()
+        assert err <= 2e-2, (name, err)
+
+
+@pytest.mark.parametrize("mode,want", [("grad", True), ("no_grad", False),
+                                       ("detached", False)])
+def test_cuda_forward_asks_for_the_lse_only_under_grad(cuda, monkeypatch,
+                                                       mode, want):
+    """ops.flash_attention on the sm90 backward's route asks the forward
+    for the lse only where the call records a gradient: not under no_grad
+    (serving, a recompute's first pass), not for inputs that need none."""
+    asked = []
+    real = fa.flash_attention_folded
+
+    def spy(*a, **kw):
+        asked.append(kw.get("return_lse", False))
+        return real(*a, **kw)
+    monkeypatch.setattr(fa, "flash_attention_folded", spy)
+    rng = np.random.default_rng(7)
+    B, S, K, G, D = 1, 128, 2, 6, 128
+    q, k, v = (torch.from_numpy(_normal(s, rng)).to(cuda, torch.bfloat16)
+               .requires_grad_(mode != "detached")
+               for s in ((B, S, K, G, D), (B, S, K, D), (B, S, K, D)))
+    before = fa.launches_bwd_sm90
+    if mode == "no_grad":
+        with torch.no_grad():
+            o = ops.flash_attention(q, k, v)
+    else:
+        o = ops.flash_attention(q, k, v)
+    assert asked == [want] and o.requires_grad == want
+    if want:
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+        assert fa.launches_bwd_sm90 == before + 1
+
+
+def test_cuda_sm90_lse_layout_at_one_bk(cuda):
+    """The forward's lse is a view of zeroed rows padded to LSE_ROWS, with
+    that stride at BK = 1 too, where a view would drop it; the backward
+    takes it as it is and refuses an lse in another layout."""
+    rng = np.random.default_rng(11)
+    BK, S, G, D = 1, 100, 5, 128
+    q = _normal((BK, S, G, D), rng) / D ** 0.5
+    k, v, g = (_normal(s, rng) for s in ((BK, S, D), (BK, S, D),
+                                         (BK, S, G, D)))
+    q, k, v, g = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+                  for x in (q, k, v, g))
+    o, lse = fa.flash_attention_folded(q, k, v, return_lse=True,
+                                       block_q=S, block_k=S)
+    assert lse.stride() == (512, G, 1)
+    got = fa.flash_attention_bwd_folded(q, k, v, o, g, lse)
+    f32 = [x.float() for x in (q, k, v)]
+    of, lsef = fa.flash_attention_plain(*f32, return_lse=True)
+    torch.testing.assert_close(lse, lsef, rtol=1e-4, atol=1e-4)
+    want = fa.flash_attention_bwd_plain(*f32, of, g.float(), lsef)
+    for name, a, b in zip("qkv", got, want):
+        err = ((a.float() - b).norm() / b.norm()).item()
+        assert err <= 2e-2, (name, err)
+    unpadded = torch.empty(lse.shape, dtype=lse.dtype, device=lse.device)
+    assert unpadded.stride() == (S * G, G, 1)
+    with pytest.raises(ValueError, match="padded rows"):
+        fa.flash_attention_bwd_folded(q, k, v, o, g, unpadded.copy_(lse))
 
 
 def test_cuda_kernel_time_is_device_time(cuda):
@@ -964,13 +1137,13 @@ def test_cuda_model_backward_through_flash_matches_plain(cuda, route, calm):
         for t in flat:
             t.grad = None
             t.requires_grad_(True)
-        before = (fa.launches_sm90, fa.launches_simt)
+        before = _flash_counts()
         loss, _ = Transformer(cfg, use_pallas=pallas).loss(p, batch)
         loss.backward()
         torch.cuda.synchronize()
         n = 2 * cfg.layer_kinds().count("attn") if pallas else 0
-        assert (fa.launches_sm90 - before[0], fa.launches_simt
-                - before[1]) == ((n, 0) if route == "sm90" else (0, n))
+        assert tuple(a - b for a, b in zip(_flash_counts(), before)) == (
+            (n, 0, n // 2) if route == "sm90" else (0, n, 0))
         return [t.grad.float() for t in flat]
 
     def normwise(a, b):

@@ -195,3 +195,133 @@ def test_flash_numpy_entry_and_no_grad_inputs():
     t = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
     assert not t.requires_grad
     np.testing.assert_array_equal(t.numpy(), out)
+
+
+# -- the sm90 backward's arithmetic, in plain PyTorch ------------------------
+
+@pytest.mark.parametrize("G", [1, 5, 6])
+@pytest.mark.parametrize("window", [0, 16])
+def test_flash_bwd_plain_matches_blockwise_and_reference_vjp(G, window):
+    """``flash_attention_bwd_plain``, fed the plain forward's o and lse,
+    gives the gradients of autograd through ``blockwise_attention`` and of
+    the reference's custom_vjp (Pallas forward in interpret mode, blockwise
+    backward), fp32 within 1e-5 of each gradient's scale.  S = 72 is no
+    multiple of the kernels' 64-row tiles or of 128; S * G rows straddle
+    query positions when G = 5, 6."""
+    import jax
+
+    from repro_torch.models.attention import blockwise_attention
+    B, S, K, D = 1, 72, 2, 16
+    q, k, v, g = _inputs(((B, S, K, G, D), (B, S, K, D), (B, S, K, D),
+                          (B, S, K, G, D)), seed=10 * G + window)
+
+    def f(q, k, v):
+        return ref_ops.flash_attention(q, k, v, causal=True, window=window,
+                                       block_q=S, block_k=S)
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want_ref = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o = blockwise_attention(*xs, causal=True, window=window)
+    want = [x.numpy() for x in torch.autograd.grad(o, xs, torch.from_numpy(g))]
+
+    qf, kf, vf = ops.fold_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    of, lse = fa.flash_attention_plain(qf, kf, vf, causal=True,
+                                       window=window, return_lse=True)
+    assert lse.shape == (B * K, S, G) and lse.dtype == torch.float32
+    gf = torch.from_numpy(g).permute(0, 2, 1, 3, 4).reshape(B * K, S, G, D)
+    dqf, dkf, dvf = fa.flash_attention_bwd_plain(qf, kf, vf, of, gf, lse,
+                                                 causal=True, window=window)
+    got = [(dqf / D ** 0.5).reshape(B, K, S, G, D).permute(0, 2, 1, 3, 4),
+           dkf.reshape(B, K, S, D).permute(0, 2, 1, 3),
+           dvf.reshape(B, K, S, D).permute(0, 2, 1, 3)]
+    for a, b, r in zip(got, want, want_ref):
+        a = a.numpy()
+        for ref_grad in (b, r):
+            err = float(np.abs(a - ref_grad).max())
+            assert err <= 1e-5 * float(np.abs(ref_grad).max()), err
+
+
+@pytest.mark.parametrize("window", [0, 16])
+def test_plain_lse_is_the_rows_logsumexp(window):
+    """The plain forward's lse is each row's logsumexp over its visible
+    scores, and exp(s - lse) over them sums to 1."""
+    BK, S, G, D = 2, 40, 3, 8
+    q, k, v = (torch.from_numpy(x) for x in _inputs(
+        ((BK, S, G, D), (BK, S, D), (BK, S, D)), seed=window))
+    o, lse = fa.flash_attention_plain(q, k, v, window=window, return_lse=True)
+    torch.testing.assert_close(o, fa.flash_attention_plain(q, k, v,
+                                                           window=window))
+    s = torch.einsum("bsgd,btd->bsgt", q, k)
+    i = torch.arange(S)
+    visible = (i[:, None] >= i[None, :]) & \
+        ((i[:, None] - i[None, :] < window) if window else True)
+    s = s.masked_fill(~visible[None, :, None, :], -torch.inf)
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1))
+    torch.testing.assert_close(torch.exp(s - lse[..., None]).sum(-1),
+                               torch.ones(BK, S, G))
+
+
+@pytest.mark.parametrize("dtype,D,S,T,window,want", [
+    (torch.bfloat16, 128, 4096, 4096, 0, "sm90"),        # train-4k
+    (torch.bfloat16, 64, 100, 100, 16, "sm90"),
+    (torch.bfloat16, 128, 64, 96, 0, "sm90"),            # T > S
+    (torch.bfloat16, 128, 96, 64, 0, "sm90"),            # causal, S > T
+    (torch.bfloat16, 128, 96, 64, 40, "sm90"),           # S - T < window
+    (torch.bfloat16, 128, 96, 64, 32, "blockwise"),      # rows see no key
+    (torch.bfloat16, 128, 64, 0, 0, "blockwise"),        # no keys
+    (torch.bfloat16, 256, 256, 256, 2048, "blockwise"),  # recurrentgemma
+    (torch.bfloat16, 32, 64, 64, 0, "blockwise"),        # the SIMT route
+    (torch.float32, 128, 64, 64, 0, "blockwise"),
+    (torch.float16, 128, 64, 64, 0, "blockwise"),
+])
+def test_bwd_route_by_shape(dtype, D, S, T, window, want):
+    """The sm90 backward takes bf16 at D = 64, 128 where every row sees a
+    key; D = 256, the SIMT route and rows that see no key recompute
+    through ``blockwise_attention``."""
+    assert fa.bwd_route(dtype, D, S, T, window) == want
+    assert fa.SM90_BWD_HEAD_DIMS == (64, 128)
+    assert set(fa.SM90_BWD_HEAD_DIMS) <= set(fa.SM90_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_cpu_backward_goes_through_blockwise(dtype, D, monkeypatch):
+    """CPU tensors launch nothing forward or backward, whatever their
+    dtype and head dim: the gradient is recomputed through
+    ``blockwise_attention`` and no counter moves."""
+    from repro_torch.models import attention
+    calls = []
+    real = attention.blockwise_attention
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(attention, "blockwise_attention", counted)
+    shapes = ((1, 64, 2, 3, D), (1, 64, 2, D), (1, 64, 2, D))
+    xs = [torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+          for x in _inputs(shapes, seed=D)]
+    before = _counts() + (fa.launches_bwd_sm90,)
+    o = ops.flash_attention(*xs, window=16)
+    grads = torch.autograd.grad(o, xs, torch.ones_like(o))
+    assert len(calls) == 1
+    assert all(g.shape == x.shape and g.dtype == x.dtype
+               for g, x in zip(grads, xs))
+    assert _counts() + (fa.launches_bwd_sm90,) == before
+
+
+def test_bwd_folded_refuses_cpu_tensors_and_mismatched_operands():
+    """``flash_attention_bwd_folded`` is the sm90 backward alone: CPU
+    tensors raise (their gradient goes through ``blockwise_attention``,
+    ``flash_attention_bwd_plain`` is the tests' reference), as do operands
+    that do not match; no counter moves."""
+    BK, S, G, D = 2, 48, 2, 16
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(
+        ((BK, S, G, D), (BK, S, D), (BK, S, D), (BK, S, G, D)), seed=4))
+    o, lse = fa.flash_attention_plain(q, k, v, window=8, return_lse=True)
+    before = fa.launches_bwd_sm90
+    with pytest.raises(ValueError, match="on a card"):
+        fa.flash_attention_bwd_folded(q, k, v, o, g, lse, window=8)
+    with pytest.raises(ValueError, match="want q, o, do"):
+        fa.flash_attention_bwd_folded(q, k, v, o, g, lse[:, :-1], window=8)
+    assert fa.launches_bwd_sm90 == before
