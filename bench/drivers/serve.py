@@ -32,7 +32,7 @@ from .. import devicetrace, traffic
 from ..program import arch, check_layout
 from ..reference import full_fp32, make_params, model_for
 from .common import (free, on_cuda, peak_bytes, profiler, reset_peak, sync,
-                     tree_map, verdict, warm_profiler)
+                     verdict, warm_profiler)
 
 # the traced spans (start as a share of the window, seconds, with the
 # host's ops): the device alone first (busy, idle, kernels), then a
@@ -306,8 +306,10 @@ def reference_logits(c: dict, seed: int, dev, chosen, precision="fp32"):
     for i, s in enumerate(seqs):
         toks[i, :len(s)] = s
     with full_fp32():
-        p = tree_map(lambda t: t.float(),
-                     make_params(cfg, seed, dev, getattr(torch, cfg["dtype"])))
+        # the tree in the served type: the reference takes each layer in
+        # float32 as it reaches it (exact), so a model whose float32 copy
+        # would not fit beside it on the card is checked whole
+        p = make_params(cfg, seed, dev, getattr(torch, cfg["dtype"]))
         logits = model_for(cfg, precision).logits(
             p, torch.from_numpy(toks).to(dev))
         out = [logits[i, r.prompt_len - 1:r.prompt_len - 1 + r.max_new_tokens]

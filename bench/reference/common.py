@@ -9,12 +9,26 @@ def rms(x, w, eps: float):
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w
 
 
-def per_layer(tree, n: int):
-    """The n per-layer trees of a tree of layer-stacked leaves (one
-    ``unbind`` per leaf, so a gradient reaches the stacked leaf once)."""
-    split = {k: per_layer(v, n) if isinstance(v, dict) else v.unbind(0)
+def fp32(tree):
+    """A tree's leaves in float32: a copy of each leaf in another type (from
+    bfloat16 exact), the leaf itself where it is float32 already."""
+    return {k: fp32(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def _unstack(tree, n: int):
+    split = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
              for k, v in tree.items()}
     return [{k: split[k][i] for k in tree} for i in range(n)]
+
+
+def per_layer(tree, n: int):
+    """The n per-layer trees of a tree of layer-stacked leaves (one
+    ``unbind`` per leaf, so a gradient reaches the stacked leaf once),
+    each in float32 as it is reached: a tree in the served type is never
+    held whole in float32."""
+    for lp in _unstack(tree, n):
+        yield fp32(lp)
 
 
 def cross_entropy(logits, labels):

@@ -63,18 +63,21 @@ class Dense:
     def hidden(self, p, tokens, remat: bool = False):
         """The final-normed states (B, S, d) of tokens (B, S); ``remat``
         recomputes each layer in the backward (``torch.utils.checkpoint``)
-        so a training step holds one layer's activations at a time."""
-        x = F.embedding(tokens.long(), p["embed"])
+        so a training step holds one layer's activations at a time.  ``p``
+        may be in the served type: each leaf is taken in float32 as it is
+        used."""
+        x = F.embedding(tokens.long(), p["embed"]).float()
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         for lp in per_layer(p["layers"], self.c["n_layers"]):
             if remat:
                 x = checkpoint(self._layer, lp, x, pos, use_reentrant=False)
             else:
                 x = self._layer(lp, x, pos)
-        return rms(x, p["final_norm"], self.c["norm_eps"])
+        return rms(x, p["final_norm"].float(), self.c["norm_eps"])
 
     def logits(self, p, tokens):
-        return self.mat("bsd,dv->bsv", self.hidden(p, tokens), p["head"])
+        return self.mat("bsd,dv->bsv", self.hidden(p, tokens),
+                        p["head"].float())
 
     def loss(self, p, tokens, labels):
         h = self.hidden(p, tokens, remat=True)

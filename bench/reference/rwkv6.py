@@ -70,10 +70,10 @@ class RWKV6:
 
     def logits(self, p, tokens):
         eps = self.c["norm_eps"]
-        x = F.embedding(tokens.long(), p["embed"])
+        x = F.embedding(tokens.long(), p["embed"]).float()
         for lp in per_layer(p["layers"], self.c["n_layers"]):
             h = x + self._time_mix(lp["rwkv"]["tm"], rms(x, lp["ln1"], eps))
             x = h + self._channel_mix(lp["rwkv"]["cm"],
                                       rms(h, lp["ln2"], eps))
-        return self.mat("btd,dv->btv", rms(x, p["final_norm"], eps),
-                        p["head"])
+        return self.mat("btd,dv->btv", rms(x, p["final_norm"].float(), eps),
+                        p["head"].float())

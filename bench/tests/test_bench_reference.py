@@ -1,10 +1,12 @@
 """The plain reference against ``repro_torch`` at a tiny size on the CPU:
 the dense loss, its gradients and an AdamW step; RWKV-6's prefill then
-decode against its full forward."""
+decode against its full forward; the reference handed bfloat16 leaves
+against the same leaves copied to float32 first."""
 import numpy as np
 import pytest
 import torch
 
+from bench.drivers.common import tree_map
 from bench.program import arch, flat
 from bench.reference import AdamW, make_params, model_for
 from bench.tests import tiny
@@ -99,3 +101,23 @@ def test_dense_serving_logits_against_the_full_forward():
         logits, cache = model.decode_step(p, cache, {"tokens": toks[:, t]},
                                           pos)
         assert torch.allclose(logits, full[:, t], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "fp8"])
+@pytest.mark.parametrize("name", ["internlm2-20b.train-4k",
+                                  "rwkv6-3b.serve-chat"])
+def test_reference_in_the_served_type_is_the_fp32_reference(name,
+                                                             precision):
+    """Leaves cast as each layer reaches them give the logits of the tree
+    copied whole to float32 first, bit for bit (the cast is exact), the
+    fp8 control's too."""
+    cfg = tiny.cell(name, dtype="bfloat16")["cfg"]
+    p = make_params(cfg, 6, "cpu", torch.bfloat16)
+    assert {t.dtype for t in flat(p).values()} == {torch.bfloat16}
+    toks = _batch(cfg["vocab"], S=12, seed=3)["tokens"]
+    ref = model_for(cfg, precision)
+    with torch.no_grad():
+        streamed = ref.logits(p, toks)
+        whole = ref.logits(tree_map(lambda t: t.float(), p), toks)
+    assert streamed.dtype == torch.float32
+    assert torch.equal(streamed, whole)
