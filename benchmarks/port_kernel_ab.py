@@ -14,7 +14,8 @@ then the named kernel phases: ``flash`` (``phase_kernel``: flash attention
 on both routes at qwen2.5-14b and recurrentgemma-2b widths),
 ``flash_bwd`` (``phase_flash_bwd_kernel``: the sm90 backward at
 internlm2-20b's train-4k call), ``wkv6``,
-``rglru`` and ``rmsnorm``.  Their JSON lines are printed prefixed with
+``rglru``, ``rmsnorm`` and ``adamw`` (AdamW's update and square sum at
+internlm2-20b's train-4k leaves).  Their JSON lines are printed prefixed with
 ``{"tree": DIR, ...}``.  Every phase checks its kernel against the plain
 version as the smoke run does, so a failed check fails this run too.
 Exits non-zero without a card.
@@ -29,7 +30,8 @@ from pathlib import Path
 
 PHASES = {"flash": "phase_kernel", "flash_bwd": "phase_flash_bwd_kernel",
           "wkv6": "phase_wkv6_kernel",
-          "rglru": "phase_rglru_kernel", "rmsnorm": "phase_rmsnorm_kernel"}
+          "rglru": "phase_rglru_kernel", "rmsnorm": "phase_rmsnorm_kernel",
+          "adamw": "phase_adamw_kernel"}
 
 CHILD = """
 import sys

@@ -6,7 +6,7 @@
 Drives the port's main path through its public entry points and checks it:
 
 1. environment: torch, CUDA, nvcc, triton, and the card with its power limit;
-2. build: compiles the five CUDA kernel sources of the repo, one
+2. build: compiles the six CUDA kernel sources of the repo, one
    ``nvcc`` per source, all started together, each with its build time;
 3. kernel vs plain: each kernel against its plain PyTorch version on every
    registry tile, with the kernel's, the plain version's and (where one
@@ -29,8 +29,12 @@ Drives the port's main path through its public entry points and checks it:
    x (4096,2560), fp32 and bf16, beside torch.nn.functional.rms_norm;
    flash's sm90 backward at internlm2-20b's train-4k call (BK 8, S 4096,
    G 6, D 128) and at D = 64, G 1 against the plain fp32 backward, beside
-   the blockwise recompute and scaled_dot_product_attention's backward.
-   The PyTorch calls are yardsticks the port never calls;
+   the blockwise recompute and scaled_dot_product_attention's backward;
+   AdamW's ``adamw_leaf`` and ``square_sum`` at internlm2-20b's train-4k
+   leaves (the bf16 ``embed`` (92544, 6144), one layer's (6144, 16384)
+   MLP matrix and the cell's leaf of six of them) against the plain slice
+   loop and slice sum, bitwise for the update.  The PyTorch calls are
+   yardsticks the port never calls;
 4. polybench: the ten problems at their default sizes, optimized and naive
    plans, interpreted and compiled, on the torch backend on cuda, against
    the numpy host oracle;
@@ -89,16 +93,20 @@ Drives the port's main path through its public entry points and checks it:
    ``build_cell``'s train function with kernels (flash's SIMT route, run
    in the forward and again in each layer's recompute) against the plain
    path: the loss within 1e-4 relative, every gradient leaf within 1e-3
-   normwise, two SIMT launches per layer a step; (b) bf16, 4 of 48
+   normwise, two SIMT launches per layer a step, and on both sides
+   AdamW's ``adamw_leaf`` and ``square_sum`` once a leaf; (b) bf16, 4 of 48
    layers, flash's sm90 route, AdamW, ``PrefetchIterator``: one warm
    step, three timed with CUDA events (median step ms, tokens/s, peak
    memory), one under torch.profiler (busy share; flash's forward, its
    sm90 backward, the other GEMMs, the optimizer update), eight sm90
-   forward and four sm90 backward launches a step, finite losses; (c)
-   bf16, 2 of 48 layers, two steps of
+   forward and four sm90 backward launches a step, ``adamw_leaf`` and
+   ``square_sum`` once a leaf a step, finite losses; (c) bf16, 2 of 48
+   layers, the model's plain path, two steps of
    ``offloaded_optimizer(adamw())`` against ``adamw()`` from the same
    start: params bitwise equal, the state in pinned host memory, each
-   run's device peak, the host's MemTotal;
+   run's device peak, the host's MemTotal, ``square_sum`` once a leaf a
+   step in both and ``adamw_leaf`` once a leaf on the card, once a piece
+   of at most ``CHUNK`` elements offloaded;
 9. rmsnorm_path: rmsnorm's entry point ``ops.rmsnorm`` on (1,4096,2560)
    activations, fp32 and bf16, with its launch count read around it (no
    model calls rmsnorm, as in the reference);
@@ -130,11 +138,13 @@ Drives the port's main path through its public entry points and checks it:
    (c) ``build_cell(qwen2.5-14b, train, mesh=1×1, use_pallas=True)`` at
    full width, fp32, 2 of 48 layers, against the unmeshed cell from the
    same weights: the loss within 1e-5 relative, every gradient leaf
-   within 1e-4 normwise, two flash launches per layer in each cell, the
-   collectives of a meshed step counted; then bf16 steps of 4 layers
+   within 1e-4 normwise, two flash launches per layer and AdamW's two
+   kernels once a leaf in each cell, the collectives of a meshed step
+   counted; then bf16 steps of 4 layers
    timed unmeshed, meshed and unmeshed again (the DTensor overhead is
    reported, not gated), the meshed first step counted (flash's sm90
-   forward twice per layer, its sm90 backward once, nothing else), its loss within 1e-5 of the
+   forward twice per layer, its sm90 backward once, AdamW's two kernels
+   once a leaf, nothing else), its loss within 1e-5 of the
    unmeshed one and its gradients within MESH_BF16_GRAD_TOL leaf by
    leaf, the drift of later losses reported beside that of a run with
    the plain attention; (d) rwkv6-3b and recurrentgemma-2b fp32 forwards
@@ -187,8 +197,10 @@ attn_step gate program's tuning) for flash's SIMT route
 forward for its sm90 route (``flash_attention_sm90``), train (b), mesh
 (c)'s bf16 step and mesh (e)'s offloaded step for the sm90 backward
 (``flash_attention_bwd_sm90``, in ``flash_attention_sm90.cu``), wkv6 and
-rglru_scan (model_forward and mesh), rmsnorm_path for rmsnorm; comparison
-launches are not counted.
+rglru_scan (model_forward and mesh), rmsnorm_path for rmsnorm, train (a)
+with kernels, train (b) and mesh (c) (the meshed cells) for AdamW's
+``adamw_leaf`` and ``square_sum`` (in ``adamw.cu``); comparison launches
+are not counted.
 Prints one JSON line per phase, then the ``{"kernels": [...]}`` line, the
 card's ``nvidia-smi`` name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
@@ -281,9 +293,17 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
             "flash_attention_bwd_sm90": "src/repro/kernels/ops.py:49",
             "wkv6": "src/repro/kernels/wkv6.py:86",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:56",
-            "rmsnorm": "src/repro/kernels/rmsnorm.py:22"}
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
+            # no TPU kernel: the reference's update is plain jnp
+            "adamw_leaf": "src/repro/optim/adamw.py",
+            "square_sum": "src/repro/optim/adamw.py"}
 # a kernel's source under csrc/, where it is not named after the kernel
-SOURCES = {"flash_attention_bwd_sm90": "flash_attention_sm90"}
+SOURCES = {"flash_attention_bwd_sm90": "flash_attention_sm90",
+           "adamw_leaf": "adamw", "square_sum": "adamw"}
+# adamw: internlm2-20b's train-4k leaves in bf16: the embedding, one
+# layer's MLP matrix, and the cell's leaf of them (its 6 layers stacked)
+ADAMW_LEAVES = {"embed": (92544, 6144), "mlp": (6144, 16384),
+                "mlp_stack": (6, 6144, 16384)}
 # serve (a): the fp32 exactness runs' depth, and the one tolerance on the
 # tokens: a request may differ from its standalone decode only where that
 # decode's top two logits lie within SERVE_TIE x max|logit| of each other
@@ -416,7 +436,8 @@ def phase_build() -> None:
     """Start one nvcc per kernel source, all at once, and wait for all."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.kernels import flash_attention, rglru_scan, rmsnorm, wkv6
+    from repro_torch.kernels import (adamw, flash_attention, rglru_scan,
+                                     rmsnorm, wkv6)
 
     def build(make):
         t = time.perf_counter()
@@ -426,7 +447,7 @@ def phase_build() -> None:
     makes = {"flash_attention": flash_attention.build,
                 "flash_attention_sm90": flash_attention.build_sm90,
                 "wkv6": wkv6.build, "rglru_scan": rglru_scan.build,
-                "rmsnorm": rmsnorm.build}
+                "rmsnorm": rmsnorm.build, "adamw": adamw.build}
     t = time.perf_counter()
     with ThreadPoolExecutor(len(makes)) as pool:
         futures = {name: pool.submit(build, make)
@@ -856,6 +877,68 @@ def phase_rmsnorm_kernel(peaks: dict) -> dict:
     return main
 
 
+def phase_adamw_kernel(peaks: dict) -> dict:
+    """AdamW's ``adamw_leaf`` and ``square_sum`` at internlm2-20b's
+    train-4k leaves in bf16 (``ADAMW_LEAVES``), against the plain slice
+    loop (``CHUNK`` slices) and slice sum: the update bitwise, the sum
+    within 1e-6 of the fp64 sum.  Bound: 22 bytes a parameter (g, p read;
+    m, v read and written; p written) and 2 (g read) over the memory
+    rate.  Returns {kernel: the embed row}."""
+    import torch
+
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.optim.adamw import CHUNK
+
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, lr=1e-4, weight_decay=0.0,
+              chunk=CHUNK)
+    rows = {}
+    for leaf, shape in ADAMW_LEAVES.items():
+        n = math.prod(shape)
+        gen = torch.Generator("cuda").manual_seed(5)
+        g = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+        p = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+        m = 0.01 * torch.randn(n, generator=gen, device="cuda")
+        v = 1e-4 * torch.rand(n, generator=gen, device="cuda")
+        step = torch.full((), 3.0, device="cuda")
+        ctx = (torch.full((), 0.37, device="cuda"), 1 - torch.pow(0.9, step),
+               1 - torch.pow(0.95, step))
+        want = [t.clone() for t in (m, v, p)]
+        ka.adamw_leaf_plain(g, *want, *ctx, **hp)
+        ka.adamw_leaf(g, m, v, p, *ctx, **hp)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip((m, v, p), want))
+        check(bitwise, f"adamw_leaf {leaf}: m, v, p differ from the plain "
+              "slice loop's")
+        del want
+        exact = float(g.double().square().sum())
+        err = abs(float(ka.square_sum(g, chunk=CHUNK)) - exact) / exact
+        plain_err = abs(float(ka.square_sum_plain(g, chunk=CHUNK))
+                        - exact) / exact
+        check(err <= 1e-6, f"square_sum {leaf}: relative error {err}")
+        times = {
+            "adamw_leaf": (time_ms(lambda: ka.adamw_leaf(g, m, v, p, *ctx,
+                                                         **hp)),
+                           time_ms(lambda: ka.adamw_leaf_plain(
+                               g, m, v, p, *ctx, **hp)), 22.0 * n),
+            "square_sum": (time_ms(lambda: ka.square_sum(g, chunk=CHUNK)),
+                           time_ms(lambda: ka.square_sum_plain(
+                               g, chunk=CHUNK)), 2.0 * n)}
+        for kernel, (kernel_ms, plain_ms, nbytes) in times.items():
+            bound_ms, bound_by = _bound_ms(0.0, nbytes, peaks["bf16"], peaks)
+            row = {"dtype": "bfloat16", "leaf": leaf, "shape": list(shape),
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bytes": nbytes,
+                   "bitwise": bitwise, "max_norm_err": err,
+                   "plain_norm_err": plain_err}
+            report("kernel_vs_plain", kernel=kernel, **row)
+            if leaf == "embed":
+                rows[kernel] = row
+        del g, p, m, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_polybench() -> None:
     import numpy as np
 
@@ -973,14 +1056,16 @@ def _attn_step_plain_loss(prog):
 def _counters() -> dict:
     """The main path's launch counters, by their name in the kernels line:
     (module, attribute).  Flash counts each route apart, and the sm90
-    backward beside them."""
-    from repro_torch.kernels import flash_attention, rglru_scan, wkv6
+    backward beside them; AdamW counts its two kernels."""
+    from repro_torch.kernels import adamw, flash_attention, rglru_scan, wkv6
     return {"wkv6": (wkv6, "launches"),
             "rglru_scan": (rglru_scan, "launches"),
             "flash_attention": (flash_attention, "launches_simt"),
             "flash_attention_sm90": (flash_attention, "launches_sm90"),
             "flash_attention_bwd_sm90": (flash_attention,
-                                         "launches_bwd_sm90")}
+                                         "launches_bwd_sm90"),
+            "adamw_leaf": (adamw, "launches_leaf"),
+            "square_sum": (adamw, "launches_square_sum")}
 
 
 def _launch_counts() -> dict:
@@ -994,12 +1079,19 @@ def _set_launch_counts(counts: dict) -> None:
 
 
 def _expected_launches(cfg, dtype, n_forwards: int = 1,
-                       n_backwards: int = 0) -> dict:
+                       n_backwards: int = 0, n_updates: int = 0,
+                       params=None, offloaded: bool = False) -> dict:
     """One launch per layer of the kernel's kind; attention layers go to
     the flash route that ``dtype`` and the head dim select, and each of
     ``n_backwards`` backward passes to flash's sm90 backward where
-    ``bwd_route`` names it (self-attention: every row sees a key)."""
+    ``bwd_route`` names it (self-attention: every row sees a key).  Each
+    of ``n_updates`` AdamW updates of ``params`` (on the card) launches
+    ``square_sum`` once a leaf and ``adamw_leaf`` once a leaf, or
+    ``offloaded`` once a piece of at most ``CHUNK`` elements."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.adamw import CHUNK
+    sizes = list(_leaf_sizes(params)) if params is not None else []
+    pieces = sum(-(-n // CHUNK) for n in sizes) if offloaded else len(sizes)
     kinds = cfg.layer_kinds()
     attn = n_forwards * kinds.count("attn")
     sm90 = fa.route(dtype, cfg.d_head) == "sm90"
@@ -1009,7 +1101,9 @@ def _expected_launches(cfg, dtype, n_forwards: int = 1,
             "flash_attention": 0 if sm90 else attn,
             "flash_attention_sm90": attn if sm90 else 0,
             "flash_attention_bwd_sm90": n_backwards * kinds.count("attn")
-            if bwd else 0}
+            if bwd else 0,
+            "adamw_leaf": n_updates * pieces,
+            "square_sum": n_updates * len(sizes)}
 
 
 def _perturb_constants(params, generator, scale: float = 0.1) -> None:
@@ -1756,7 +1850,8 @@ def _train_kernel_vs_plain(smi: str) -> dict:
     route) against the plain path from the same weights and batch, the
     loss at TRAIN_LOSS_RTOL, then every gradient leaf at TRAIN_GRAD_TOL
     (``steps.value_and_grad``, a comparison: its launches are not
-    counted).  Returns the launches of the cell's run with kernels."""
+    counted).  Both cells update with AdamW's kernels, once a leaf each.
+    Returns the launches of the cell's run with kernels."""
     import dataclasses
 
     import torch
@@ -1775,28 +1870,30 @@ def _train_kernel_vs_plain(smi: str) -> dict:
     params = Transformer(cfg).init(gen)
     _perturb_constants(params, gen)
     batch = _train_batch(cfg, 0)
+    # both sides update with AdamW's kernels; only the model's differ
+    update = _expected_launches(cfg, torch.float32, n_forwards=0,
+                                n_updates=1, params=params)
+    n_attn = cfg.layer_kinds().count("attn")
+    want = {True: {**update, "flash_attention": 2 * n_attn}, False: update}
     losses, counts = {}, None
+    before = _launch_counts()
     for use_pallas in (True, False):
         cell = steps.build_cell(cfg, shape, use_pallas=use_pallas)
         p = _clone_tree(params)
         state = default_optimizer(cfg).init(p)
-        before = _launch_counts()
-        if use_pallas:
-            _set_launch_counts(dict.fromkeys(_counters(), 0))  # run starts
+        _set_launch_counts(dict.fromkeys(_counters(), 0))      # run starts
         _, _, metrics = cell.fn(p, state, batch)
         losses[use_pallas] = float(metrics["loss"])
+        got = _launch_counts()                                 # ... ends
+        check(got == want[use_pallas], f"train (a): "
+              f"{'kernel' if use_pallas else 'plain'} path launches {got}, "
+              f"want {want[use_pallas]} (the forward and the per-layer "
+              "recompute with kernels; the update on both)")
         if use_pallas:
-            counts = _launch_counts()                          # ... ends
-            _set_launch_counts(before)
-        else:
-            check(_launch_counts() == before,
-                  "train (a): the plain path launched a kernel")
+            counts = got
         del p, state, metrics, cell
         torch.cuda.empty_cache()
-    n_attn = cfg.layer_kinds().count("attn")
-    want = {**dict.fromkeys(_counters(), 0), "flash_attention": 2 * n_attn}
-    check(counts == want, f"train (a): launches {counts}, want {want} (the "
-          "forward and the per-layer recompute)")
+    _set_launch_counts(before)
     rel = abs(losses[True] - losses[False]) / abs(losses[False])
     check(math.isfinite(losses[True]) and rel <= TRAIN_LOSS_RTOL,
           f"train (a): loss with kernels {losses[True]} vs plain "
@@ -1898,6 +1995,7 @@ def _train_timed(smi: str, peaks: dict) -> dict:
     gen = torch.Generator("cuda").manual_seed(1)
     params = Transformer(cfg).init(gen, dtype=torch.bfloat16)
     n_params = sum(_leaf_sizes(params))
+    n_leaves = len(list(_leaf_sizes(params)))
     opt = adamw()
     state = opt.init(params)
     step = make_train_step(Transformer(cfg, use_pallas=True), opt)
@@ -1933,7 +2031,9 @@ def _train_timed(smi: str, peaks: dict) -> dict:
     n_steps = TRAIN_TIMED_STEPS + 2
     want = {**dict.fromkeys(_counters(), 0),
             "flash_attention_sm90": 2 * TRAIN_TIMED_LAYERS * n_steps,
-            "flash_attention_bwd_sm90": TRAIN_TIMED_LAYERS * n_steps}
+            "flash_attention_bwd_sm90": TRAIN_TIMED_LAYERS * n_steps,
+            "adamw_leaf": n_leaves * n_steps,
+            "square_sum": n_leaves * n_steps}
     check(counts == want, f"train (b): launches {counts}, want {want}")
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses),
@@ -1970,6 +2070,9 @@ def _train_timed(smi: str, peaks: dict) -> dict:
            sm90_launches_per_step=counts["flash_attention_sm90"] / n_steps,
            sm90_bwd_launches_per_step=counts["flash_attention_bwd_sm90"]
            / n_steps,
+           adamw_leaf_launches_per_step=counts["adamw_leaf"] / n_steps,
+           square_sum_launches_per_step=counts["square_sum"] / n_steps,
+           n_leaves=n_leaves,
            bound_ms=bound_ms, bound_flops=flops, bound_opt_bytes=opt_bytes,
            seconds=time.perf_counter() - t_run, card=smi)
     del params, state, m, step
@@ -1979,11 +2082,13 @@ def _train_timed(smi: str, peaks: dict) -> dict:
 
 def _train_offload(smi: str) -> None:
     """train (c): qwen2.5-14b at full width, TRAIN_CUT_LAYERS deep, bf16
-    (plain path: no kernel), two steps of ``offloaded_optimizer(adamw())``
-    against ``adamw()`` from the same start and batches: the params
-    bitwise equal, the offloaded state in pinned host memory, each run's
-    device peak over what was resident before its ``init`` (so the
-    state on the card counts)."""
+    (the model's plain path: no model kernel), two steps of
+    ``offloaded_optimizer(adamw())`` against ``adamw()`` from the same
+    start and batches: the params bitwise equal, the offloaded state in
+    pinned host memory, each run's device peak over what was resident
+    before its ``init`` (so the state on the card counts).  AdamW's
+    kernels launch once a leaf a step on the card, and ``adamw_leaf``
+    once a piece offloaded."""
     import dataclasses
 
     import torch
@@ -2006,6 +2111,10 @@ def _train_offload(smi: str) -> None:
     before = _launch_counts()
     runs = {}
     for opt in (adamw(), offloaded_optimizer(adamw())):
+        want = _expected_launches(cfg, torch.bfloat16, n_forwards=0,
+                                  n_updates=len(batches), params=start,
+                                  offloaded="offload" in opt.name)
+        _set_launch_counts(dict.fromkeys(_counters(), 0))  # the run starts
         params = _clone_tree(start)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2024,9 +2133,12 @@ def _train_offload(smi: str) -> None:
             e1.record()
             torch.cuda.synchronize()
             times.append(e0.elapsed_time(e1))
+        got = _launch_counts()                             # ... and ends
+        check(got == want, f"train (c) {opt.name}: launches {got}, want "
+              f"{want}")
         arrays = [x for x in leaves(state) if x.ndim]
         runs[opt.name] = dict(
-            params=params, init_s=init_s, step_ms=times,
+            params=params, init_s=init_s, step_ms=times, launches=got,
             resident_before_gb=base / 1e9,
             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             peak_over_resident_gb=(torch.cuda.max_memory_allocated()
@@ -2037,7 +2149,7 @@ def _train_offload(smi: str) -> None:
             state_on_card=all(x.is_cuda for x in arrays))
         del state, step, arrays
         torch.cuda.empty_cache()
-    check(_launch_counts() == before, "train (c) launched a kernel")
+    _set_launch_counts(before)
     plain, off = runs["adamw"], runs["adamw+offload"]
     check(plain["state_on_card"] and off["state_pinned"],
           "train (c): want the plain state on the card and the offloaded "
@@ -2387,7 +2499,8 @@ def _mesh_train(mesh, smi: str) -> dict:
     use_pallas=True)`` at full width, fp32, TRAIN_CUT_LAYERS deep, against
     the unmeshed cell from the same weights: the loss within
     MESH_LOSS_RTOL, every gradient leaf within MESH_GRAD_TOL normwise, two
-    flash launches per layer in each cell; then one bf16 step of
+    flash launches per layer and AdamW's ``adamw_leaf`` and
+    ``square_sum`` once a leaf in each cell; then one bf16 step of
     TRAIN_TIMED_LAYERS layers, meshed against unmeshed
     (``_mesh_train_bf16``).  Returns the meshed cells' launches."""
     import dataclasses
@@ -2412,7 +2525,9 @@ def _mesh_train(mesh, smi: str) -> dict:
     _perturb_constants(params, gen)
     batch = _train_batch(cfg, 0)
     n_attn = cfg.layer_kinds().count("attn")
-    want = {**dict.fromkeys(_counters(), 0), "flash_attention": 2 * n_attn}
+    want = {**_expected_launches(cfg, torch.float32, n_forwards=0,
+                                 n_updates=1, params=params),
+            "flash_attention": 2 * n_attn}
     losses, counts = {}, None
     for meshed in (False, True):
         cell = steps.build_cell(cfg, shape, mesh if meshed else None,
@@ -2481,8 +2596,9 @@ def _mesh_train_bf16(mesh, smi: str) -> dict:
     unmeshed ones, reported, not gated).  The meshed first step is the
     main path's: its launches are counted and must be flash's sm90
     kernel twice per attention layer (the forward and the backward's
-    recompute), its sm90 backward once, and nothing else; its loss, taken before any update, must
-    be within MESH_LOSS_RTOL of the unmeshed one.  The first step's
+    recompute), its sm90 backward once, AdamW's two kernels once a leaf,
+    and nothing else; its loss, taken before any update, must be within
+    MESH_LOSS_RTOL of the unmeshed one.  The first step's
     gradients, meshed against unmeshed, must agree leaf by leaf within
     MESH_BF16_GRAD_TOL normwise; the plain attention's against the
     kernel's are reported beside them.  Returns the counted launches."""
@@ -2505,9 +2621,8 @@ def _mesh_train_bf16(mesh, smi: str) -> dict:
     gen = torch.Generator("cuda").manual_seed(1)
     params = Transformer(cfg).init(gen)
     batch = _train_batch(cfg, 1)
-    want = {**dict.fromkeys(_counters(), 0),
-            **_expected_launches(cfg, torch.bfloat16, n_forwards=2,
-                                 n_backwards=1)}
+    want = _expected_launches(cfg, torch.bfloat16, n_forwards=2,
+                              n_backwards=1, n_updates=1, params=params)
     runs, counts = [], None
     before = _launch_counts()
     for label, meshed, kernels in (("unmeshed", False, True),
@@ -3097,7 +3212,8 @@ def main() -> int:
             "flash_attention_bwd_sm90": phase_flash_bwd_kernel(peaks),
             "wkv6": phase_wkv6_kernel(peaks),
             "rglru_scan": phase_rglru_kernel(peaks),
-            "rmsnorm": phase_rmsnorm_kernel(peaks)}
+            "rmsnorm": phase_rmsnorm_kernel(peaks),
+            **phase_adamw_kernel(peaks)}
     phase_polybench()
     launches = phase_attn_step()
     for name, cut in MODEL_CUTS.items():

@@ -8,11 +8,13 @@ back to the param's type.  The state tree is ``{"m", "v", "step"}``, with
 
 Where the reference donates its buffers to a jitted step, the port
 updates in place under ``torch.no_grad()``: ``update`` writes the new
-values into ``params`` and ``state`` and returns those trees.  It walks
-each leaf in slices of ``CHUNK`` elements, so the fp32 temporaries of an
-update never exceed two slices (one fp32 copy of qwen2.5-14b's 778 M-
-element ``embed`` alone would be 3.1 GB); the arithmetic is elementwise,
-so slicing changes no value.
+values into ``params`` and ``state`` and returns those trees.  Each leaf's
+update and its share of the clip norm are ``kernels.adamw``'s: on a card
+one hand-written CUDA pass over the whole leaf each, which keeps no fp32
+temporary; on the CPU the plain loop over slices of ``CHUNK`` elements, so
+its temporaries never exceed two slices (one fp32 copy of qwen2.5-14b's
+778 M-element ``embed`` alone would be 3.1 GB).  The arithmetic is
+elementwise, so slicing changes no value.
 
 An ``Optimizer`` also carries its update as a ``LeafRule``: the global
 terms once (``begin``), then one param at a time (``leaf``) with that
@@ -30,13 +32,14 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..distributed.sharding import is_dtensor, local_shard
+from ..kernels import adamw as kadamw
 from ..trace import UPDATE_RANGE
 from ..tree import leaves, tree_map
 
 __all__ = ["adamw", "Optimizer", "LeafRule", "apply_rule", "synced",
            "local_ctx", "CHUNK", "UPDATE_RANGE"]
 
-CHUNK = 1 << 26          # elements of a leaf updated at a time (256 MB fp32)
+CHUNK = 1 << 26   # elements of a leaf the CPU updates at a time (256 MB fp32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,25 +105,19 @@ def apply_rule(rule: LeafRule, grads, state, params):
 
 
 def _square_sum(g) -> torch.Tensor:
-    """Σ g² in fp32, slice by slice.  A DTensor sums its local shard the
-    same way, then across the mesh dims it is sharded over (a replicated
-    dim holds the same elements on every rank and is counted once), so a
-    1×1 mesh gives the unmeshed sum bit for bit."""
-    gf = _flat(local_shard(g).contiguous())
-    total = torch.zeros((), dtype=torch.float32, device=gf.device)
-    for lo, hi in _slices(gf.numel()):
-        total = total + torch.square(gf[lo:hi].to(torch.float32)).sum()
+    """Σ g² in fp32 (``kernels.adamw.square_sum``: one launch on a card,
+    slice by slice on the CPU).  A DTensor sums its local shard the same
+    way, then across the mesh dims it is sharded over (a replicated dim
+    holds the same elements on every rank and is counted once), so a 1×1
+    mesh gives the unmeshed sum bit for bit."""
+    total = kadamw.square_sum(_flat(local_shard(g).contiguous()),
+                              chunk=CHUNK)
     if not is_dtensor(g):
         return total
     plc = [Partial() if isinstance(p, Shard) else Replicate()
            for p in g.placements]
     return DTensor.from_local(total, g.device_mesh, plc,
                               run_check=False).full_tensor()
-
-
-def _slices(n: int):
-    for lo in range(0, n, CHUNK):
-        yield lo, min(lo + CHUNK, n)
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -163,23 +160,10 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
                 "bc2": 1 - torch.pow(b2, step)}
 
     def leaf(ctx, g, slot, p):
-        gf, mf, vf, pf = (_flat(t) for t in (g, slot["m"], slot["v"], p))
-        for lo, hi in _slices(pf.numel()):
-            m, v, pc = mf[lo:hi], vf[lo:hi], pf[lo:hi]
-            gs = gf[lo:hi].to(torch.float32) * ctx["scale"]
-            t = gs * (1 - b1)
-            m.mul_(b1).add_(t)                       # b1 m + (1 - b1) g
-            torch.square(gs, out=t)
-            v.mul_(b2).add_(t.mul_(1 - b2))          # b2 v + (1 - b2) g²
-            torch.div(v, ctx["bc2"], out=t)
-            t.sqrt_().add_(eps)                      # sqrt(v̂) + eps
-            torch.div(m, ctx["bc1"], out=gs)
-            gs.div_(t)                               # m̂ / (sqrt(v̂) + eps)
-            if weight_decay:
-                torch.mul(pc.to(torch.float32), weight_decay, out=t)
-                gs.add_(t)
-            torch.sub(pc, gs.mul_(lr), out=t)        # p - lr · delta, fp32
-            pc.copy_(t)
+        kadamw.adamw_leaf(*(_flat(t) for t in (g, slot["m"], slot["v"], p)),
+                          ctx["scale"], ctx["bc1"], ctx["bc2"], b1=b1, b2=b2,
+                          eps=eps, lr=lr, weight_decay=weight_decay,
+                          chunk=CHUNK)
 
     rule = LeafRule(slots=slots, begin=begin, leaf=leaf, elementwise=True)
     return Optimizer(init=init,

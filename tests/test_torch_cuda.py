@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import adamw as ka
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
@@ -1055,6 +1056,176 @@ def test_cuda_offloaded_optimizer_is_bitwise_the_plain_one(cuda, name,
     for a, b in zip(_tree_leaves(p1) + _tree_leaves(s1),
                     _tree_leaves(p2) + _tree_leaves(s2)):
         assert torch.equal(a.cpu(), b.cpu())
+
+
+# AdamW's update and the clip norm (kernels/adamw.py): the kernels against
+# the plain slice loop on the card, bitwise, and the square sum against an
+# fp64 sum (1e-6 relative: fp64 accumulation of fp32 vector sums)
+ADAMW_HP = dict(b1=0.9, b2=0.95, eps=1e-8, lr=1e-2)   # lr: p moves in bf16
+
+
+def _adamw_leaf_inputs(cuda, n, dtype, seed):
+    """g, m, v, p of a leaf mid-training, and (scale, bc1, bc2) as
+    ``adamw``'s ``begin`` makes them at step 3."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    g = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    p = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    m = 0.01 * torch.randn(n, generator=gen, device=cuda)
+    v = 1e-4 * torch.rand(n, generator=gen, device=cuda)
+    step = torch.full((), 3.0, device=cuda)
+    ctx = (torch.full((), 0.37, device=cuda), 1 - torch.pow(0.9, step),
+           1 - torch.pow(0.95, step))
+    return (g, m, v, p), ctx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("n", [1, 7, 4096, 4099, 100_003])
+def test_cuda_adamw_leaf_is_bitwise_the_slice_loop(cuda, dtype,
+                                                   weight_decay, n):
+    """One launch over the whole leaf, one a piece of 1001 elements (each
+    piece's g, m, v, p at one offset that is not 16-byte aligned: a scalar
+    head, then vectors), and pieces whose m, v are fresh copies (aligned
+    while g, p are not: all scalar) give m, v and p bitwise those of the
+    plain slice loop on the card."""
+    (g, m, v, p), ctx = _adamw_leaf_inputs(cuda, n, dtype, n)
+    hp = dict(ADAMW_HP, weight_decay=weight_decay)
+    want = [t.clone() for t in (m, v, p)]
+    ka.adamw_leaf_plain(g, *want, *ctx, chunk=1000, **hp)
+    whole = [t.clone() for t in (m, v, p)]
+    before = ka.launches_leaf
+    ka.adamw_leaf(g, *whole, *ctx, chunk=1000, **hp)
+    assert ka.launches_leaf == before + 1
+    pieces = [t.clone() for t in (m, v, p)]
+    copied = [t.clone() for t in (m, v, p)]
+    for lo in range(0, n, 1001):
+        hi = min(lo + 1001, n)
+        ka.adamw_leaf(g[lo:hi], *(t[lo:hi] for t in pieces), *ctx,
+                      chunk=1000, **hp)
+        mc, vc = (t[lo:hi].clone() for t in copied[:2])
+        ka.adamw_leaf(g[lo:hi], mc, vc, copied[2][lo:hi], *ctx, chunk=1000,
+                      **hp)
+        copied[0][lo:hi], copied[1][lo:hi] = mc, vc
+    torch.cuda.synchronize()
+    assert ka.launches_leaf == before + 1 + 2 * -(-n // 1001)
+    for got in (whole, pieces, copied):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not torch.equal(m, want[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1, 9, 4099, 1_000_003])
+def test_cuda_square_sum_matches_fp64(cuda, dtype, n):
+    """Σ g² within 1e-6 relative of the fp64 sum, bitwise the same on a
+    second run, and on a slice that starts off 16 bytes; one launch a
+    call."""
+    gen = torch.Generator(cuda).manual_seed(n)
+    g = torch.randn(n + 3, generator=gen, device=cuda).to(dtype)
+    before = ka.launches_square_sum
+    for x in (g[:n], g[3:]):
+        want = float(x.double().square().sum())
+        first = ka.square_sum(x, chunk=1000)
+        again = ka.square_sum(x, chunk=1000)
+        torch.cuda.synchronize()
+        assert first.dtype == torch.float32 and first.ndim == 0
+        assert torch.equal(first, again)
+        assert abs(float(first) - want) <= 1e-6 * want
+    assert ka.launches_square_sum == before + 4
+
+
+def test_cuda_adamw_kernels_raise_on_what_they_do_not_take(cuda):
+    (g, m, v, p), ctx = _adamw_leaf_inputs(cuda, 64, torch.bfloat16, 0)
+    def leaf(*a, c=ctx):
+        ka.adamw_leaf(*a, *c, chunk=1000, weight_decay=0.0, **ADAMW_HP)
+    before = (ka.launches_leaf, ka.launches_square_sum)
+    with pytest.raises(TypeError):
+        leaf(g.float(), m, v, p)                   # g and p differ
+    with pytest.raises(TypeError):
+        leaf(g, m.to(torch.bfloat16), v, p)        # state not fp32
+    with pytest.raises(TypeError):
+        leaf(g.double(), m, v, p.double())         # a type not taken
+    with pytest.raises(TypeError):
+        leaf(g, m, v, p, c=(ctx[0].double(), *ctx[1:]))
+    with pytest.raises(ValueError, match="contiguous"):
+        leaf(*(t.view(8, 8).t() for t in (g, m, v, p)))
+    with pytest.raises(ValueError, match="one device"):
+        leaf(g, m.cpu(), v, p)
+    with pytest.raises(ValueError, match="lengths"):
+        leaf(g, m[:32], v, p)
+    with pytest.raises(TypeError):
+        ka.square_sum(g.to(torch.int32), chunk=1000)
+    with pytest.raises(ValueError, match="contiguous"):
+        ka.square_sum(g.view(8, 8).t(), chunk=1000)
+    assert (ka.launches_leaf, ka.launches_square_sum) == before
+
+
+def test_cuda_adamw_kernels_count_under_the_update_range(cuda):
+    """Under a profiler both kernels' device time counts under the
+    optimizer's range (``trace.UPDATE_RANGE``) through their operators
+    (``repro_torch::adamw_leaf``, ``repro_torch::square_sum``): the range
+    ``optim.update_ms.train`` reads."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw
+    from repro_torch.trace import UPDATE_RANGE
+    (g, _, _, p), _ = _adamw_leaf_inputs(cuda, 1 << 20, torch.bfloat16, 0)
+    opt = adamw()
+    params = {"w": p}
+    state = opt.init(params)
+    opt.update({"w": g}, state, params)            # builds, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.update({"w": g}, state, params)
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    update = [e for e in cpu if e.name == UPDATE_RANGE]
+    ops = {name: sum(e.device_time_total for e in cpu if e.name == name)
+           for name in ("repro_torch::adamw_leaf", "repro_torch::square_sum")}
+    assert len(update) == 1 and all(t > 0 for t in ops.values()), ops
+    assert update[0].device_time_total >= 0.999 * sum(ops.values())
+
+
+@pytest.mark.parametrize("chunk", [None, 1000, 1001],
+                         ids=["on_card", "offload_1000", "offload_1001"])
+def test_cuda_adamw_launches_once_a_leaf(cuda, chunk, monkeypatch):
+    """One update of reduced qwen2.5-14b's bf16 params launches
+    ``square_sum`` once a leaf and ``adamw_leaf`` once a leaf on the card,
+    or once a piece under ``offloaded_optimizer`` (pieces of 1000 and 1001
+    elements: the latter's g and p start off 16 bytes, their m, v copies
+    do not); the offloaded params and state equal the on-card ones bit
+    for bit."""
+    from repro_torch.optim import adamw, offload, offloaded_optimizer
+    from repro_torch.tree import unflatten
+    cfg = reduced(get_config("qwen2.5-14b"))
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = Transformer(cfg).init(gen, dtype=torch.bfloat16)
+    flat = _tree_leaves(params)
+    grads = unflatten(params, [torch.randn(t.shape, generator=gen,
+                                           device=cuda).to(t.dtype)
+                               for t in flat])
+    runs = {}
+    for off in ([False] if chunk is None else [False, True]):
+        if off:
+            monkeypatch.setattr(offload, "CHUNK", chunk)
+        opt = offloaded_optimizer(adamw()) if off else adamw()
+        p = unflatten(params, [t.clone() for t in flat])
+        state = opt.init(p)
+        before = (ka.launches_leaf, ka.launches_square_sum)
+        opt.update(grads, state, p)
+        torch.cuda.synchronize()
+        counts = (ka.launches_leaf - before[0],
+                  ka.launches_square_sum - before[1])
+        units = sum(-(-t.numel() // chunk) for t in flat) if off \
+            else len(flat)
+        assert counts == (units, len(flat))
+        runs[off] = [t.cpu() for t in _tree_leaves(p) + _tree_leaves(state)]
+    if chunk is not None:
+        assert all(torch.equal(a, b) for a, b in zip(runs[False], runs[True]))
 
 
 @pytest.mark.parametrize("pressure", [False, True],

@@ -148,6 +148,37 @@ def test_adamw_slices_change_no_value(monkeypatch):
         assert torch.equal(a, b)
 
 
+def test_adamw_takes_the_plain_versions_on_the_cpu(monkeypatch):
+    """CPU tensors take ``kernels.adamw``'s plain slice loop and slice
+    sum: the kernel library is never built (this machine needs no
+    ``nvcc`` to import or run the module) and neither launch counter
+    moves; so do the dry-run's ``meta`` tensors."""
+    kadamw = importlib.import_module("repro_torch.kernels.adamw")
+    from repro_torch.kernels import _build
+
+    def no_nvcc(*args, **kw):
+        raise AssertionError("the CPU path asked for the kernel library")
+    monkeypatch.setattr(_build, "load", no_nvcc)
+    monkeypatch.setattr(kadamw, "launches_leaf", 0)
+    monkeypatch.setattr(kadamw, "launches_square_sum", 0)
+    opt = adamw(weight_decay=0.1)
+    params = params_from_numpy(_tree(0), "cpu")
+    state = opt.init(params)
+    for g in _grads(2):
+        opt.update(params_from_numpy(g, "cpu"), state, params)
+    assert (kadamw.launches_leaf, kadamw.launches_square_sum) == (0, 0)
+    meta = torch.empty(8, device="meta")
+    assert kadamw.square_sum(meta, chunk=4).device.type == "meta"
+    kadamw.adamw_leaf(meta, meta.float(), meta.float(), meta,
+                      *(torch.ones((), device="meta") for _ in range(3)),
+                      b1=0.9, b2=0.95, eps=1e-8, lr=1e-4, weight_decay=0.0,
+                      chunk=4)
+    assert (kadamw.launches_leaf, kadamw.launches_square_sum) == (0, 0)
+    # the card's operators exist, for CUDA tensors alone
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.square_sum(torch.ones(8))
+
+
 def test_grads_are_not_modified():
     opt = adamw()
     params = params_from_numpy(_tree(0), "cpu")
